@@ -14,12 +14,18 @@ not beside this file). Phases, each of which fails the run on error:
      fp32 rounding of the Gram form; Dmax to rtol 1e-6;
   3. the edge-attention kernel against its plain version on the card at
      nn in {8,16,32,64}, N=8192 and a ragged N: fp32 atol 5e-5 / rtol 1e-4,
-     bf16 atol 5e-2 / rtol 5e-2;
+     bf16 atol 5e-2 / rtol 5e-2; its warm time at N=8192 on uniform random
+     ids and on the main path's own ids (the kNN of the synthetic 8191-atom
+     structure, first nn columns), beside its bounds (fp32: on the CUDA
+     cores, and as 3xTF32 on the tensor cores, the kernel's scheme); the
+     edge library's ptxas line (registers, shared memory, spills);
   4. the main path at full width: Predictor(i_v4_1, 32 layers, seeded random
      weights, device="cuda").predict_pdb_file on tests/goldens/1OL5_A_i0.pdb
      and on a synthetic 8191-atom structure (bucket 8192), with the launch
      counters set to 0 just before and read just after (1 kNN launch per
-     structure, 32 edge launches per forward); the _i{0..4}.pdb files
+     structure, 32 edge launches per forward; each edge launch runs two
+     kernels of csrc/edge_attention.cu, the per-atom pre-pass and the
+     tile kernel, counts once, and is timed as a whole); the _i{0..4}.pdb files
      written and checked; the 1OL5 probabilities held against the same
      Predictor on the CPU (plain versions, fp32) at atol 1e-4; then, for
      each structure, the warm time of each stage and one forward under
@@ -48,10 +54,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "1OL5_A_i0.pdb")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): fp32 on the CUDA cores, bf16 on
-# the tensor cores, HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet, dense): fp32 on the CUDA cores, bf16 and
+# TF32 on the tensor cores, HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 FP32_TOL = dict(atol=5e-5, rtol=1e-4)
@@ -203,6 +210,18 @@ def phase_knn(dev):
 # ---------------------------------------------------------------- phase 3
 
 
+def edge_cost(N, nn, dt_bytes=4, S=32, Nh=2):
+    """(FLOP, bytes) the layer needs: the three edge-MLP products with their
+    block-diagonal structure, the per-atom first-layer term, the value
+    sums; each input read once and each output written once."""
+    mlp = 2 * (4 * S * 4 * S + 6 * S * S + S * 12 + 4 * S * S)
+    values = 2 * Nh * S + 3 * Nh * S * 4
+    flops = N * nn * (mlp + values) + N * 2 * (2 * S) * (4 * S)
+    weights = (6 * S + 1) * 4 * S + 4 * S + 4 * S * 4 * S + 4 * S + 4 * S * 76 + 76
+    nbytes = (N * (4 * S + nn + 3 * nn + 12 + 4 * Nh * S) + weights) * dt_bytes + N * nn * 4
+    return flops, nbytes
+
+
 def edge_inputs(N, nn, dt, dev, seed):
     """Seeded inputs at the main path's widths (S=32, Nh=2, Nk=3)."""
     import torch
@@ -224,23 +243,16 @@ def edge_inputs(N, nn, dt, dev, seed):
     return [v.to(dev) if v.dtype == torch.int32 else v.to(dev, dt).contiguous() for v in vals.values()]
 
 
-def edge_cost(N, nn, dt_bytes=4, S=32, Nh=2):
-    """(FLOP, bytes) the layer needs: the three edge-MLP products with their
-    block-diagonal structure, the per-atom first-layer term, the value
-    sums; each input read once and each output written once."""
-    mlp = 2 * (4 * S * 4 * S + 6 * S * S + S * 12 + 4 * S * S)
-    values = 2 * Nh * S + 3 * Nh * S * 4
-    flops = N * nn * (mlp + values) + N * 2 * (2 * S) * (4 * S)
-    weights = (6 * S + 1) * 4 * S + 4 * S + 4 * S * 4 * S + 4 * S + 4 * S * 76 + 76
-    nbytes = (N * (4 * S + nn + 3 * nn + 12 + 4 * Nh * S) + weights) * dt_bytes + N * nn * 4
-    return flops, nbytes
-
-
 def phase_edge(dev):
     import torch
 
+    from pesto_tpu_torch.ops import _build
     from pesto_tpu_torch.ops import edge_attention as ea
 
+    for line in _build.build_logs.get("edge_attention", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"edge_attention ptxas: {line.strip()}")
+    knn_ids = main_path_inputs(dev)[0].reshape(8192, 64)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     timing = {}
     for nn in (8, 16, 32, 64):
@@ -261,16 +273,26 @@ def phase_edge(dev):
                 line = f"edge nn={nn} N={N} {str(dt)[6:]}: max abs err {err:.3g}"
                 if N == 8192:
                     ms = cuda_time_ms(lambda: ea.edge_attention_kernel(*args))
+                    knn_args = [args[0], knn_ids[:, :nn].contiguous(), *args[2:]]
+                    knn_ms = cuda_time_ms(lambda: ea.edge_attention_kernel(*knn_args))
                     pms = cuda_time_ms(lambda: ea.edge_attention_plain(*args), reps=3, warmup=1)
                     bf16 = dt == torch.bfloat16
                     flops, nbytes = edge_cost(N, nn, 2 if bf16 else 4)
-                    # bf16 operands with fp32 accumulation fit the bf16
-                    # tensor cores, so their bound is taken at that peak
-                    lim = bound(flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+                    # the products run on the tensor cores: bf16 operands at
+                    # the bf16 peak; fp32 as three TF32 products (3xTF32) at
+                    # the TF32 peak, beside all of it on the CUDA cores
+                    if bf16:
+                        lim = bound(flops, nbytes, PEAK_BF16_FLOPS)
+                        extra = ""
+                    else:
+                        lim = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+                        cores = bound(flops, nbytes, PEAK_FP32_FLOPS)
+                        extra = f", CUDA-core bound {cores['bound_ms']:.4f} ms ({cores['bound_by']})"
                     timing[(nn, dt)] = (ms, pms, lim)
-                    line += (f" kernel {ms:.4f} ms plain {pms:.3f} ms "
+                    line += (f" kernel {ms:.4f} ms (kNN ids {knn_ms:.4f} ms) plain {pms:.3f} ms "
                              f"({flops / ms / 1e9:.2f} TFLOP/s) bound {lim['bound_ms']:.4f} ms "
-                             f"({lim['bound_by']})")
+                             f"({lim['bound_by']}{', 3xTF32 on the tensor cores' if not bf16 else ''})"
+                             f"{extra}")
                 log(line)
     return worst, timing
 
@@ -652,7 +674,8 @@ def main():
         for name, (source, replaces) in OFF_PATH.items()
     ]
     log("kernel shapes: knn_top64 at the 8191-atom structure (NA=8192); "
-        "edge_attention fp32 at N=8192, nn=64; bisect_mask and take_rows at the "
+        "edge_attention fp32 at N=8192, nn=64 (bound: 3xTF32 on the tensor cores); "
+        "bisect_mask and take_rows at the "
         "main path's shapes, the other off-path kernels at their scripts' shapes; "
         "off-path launches are those of the two scripts' runs")
     log(f"end to end ms/structure: {json.dumps(e2e)}")

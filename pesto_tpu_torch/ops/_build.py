@@ -97,19 +97,37 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
 
 
+# (source, entry, argument kinds) -> (library, C function with its argtypes set)
+_entries: dict = {}
+
+
+def _entry(source: str, entry: str, args) -> tuple:
+    kinds = tuple(isinstance(a, torch.Tensor) for a in args)
+    key = (source, entry, kinds)
+    found = _entries.get(key)
+    if found is None:
+        lib = load(source)
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p if k else ctypes.c_int for k in kinds] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        found = _entries[key] = (lib, fn)
+    return found
+
+
 def call(source: str, entry: str, device: torch.device, *args) -> None:
     """Call the C entry point `entry` of csrc/<source>.cu on the current
     stream of `device`: a tensor passes as its data pointer, an int as a C
-    int, and the stream comes last. Raises on a non-zero status."""
-    lib = load(source)
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor) else ctypes.c_int
-                   for a in args] + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        check(lib, fn(*ptrs, stream), f"{entry} launch")
+    int, and the stream comes last. The argument types are set once per
+    entry point; the device is entered only when it is not the current one.
+    Raises on a non-zero status."""
+    lib, fn = _entry(source, entry, args)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    if device.index is None or device.index == torch.cuda.current_device():
+        status = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            status = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, status, f"{entry} launch")
 
 
 def on_cuda(x: torch.Tensor, what: str) -> bool:

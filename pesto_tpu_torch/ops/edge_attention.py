@@ -7,8 +7,11 @@ Replaces the TPU kernel `pesto_tpu/ops/geometric_pallas.py`
 vector softmax, the value sums). The Hopper kernel takes atom-major states
 `qp [N, 4S]` and neighbour ids `[N, nn]` and gathers the neighbour rows
 itself; the TPU kernel's nn-major input and lane-aligned K2 packing were
-shaped for TPU tiles and are not carried over. The source note in the .cu
-file says what bounds the kernel and how it is laid out.
+shaped for TPU tiles and are not carried over. The kernel runs the three
+edge-MLP products on the tensor cores (bf16 operands in bf16 mode, 3xTF32
+in fp32 mode) and lays out its weights itself, in shared memory, once per
+block. The source note in the .cu file says what bounds the kernel and how
+it is laid out.
 
 Weights are the packed tensors of `pesto_tpu/models/pesto.py:233-275`:
 K0 [6S+1, 4S] (the three first layers side by side), B0 [4S], K1 [4S, 4S]
@@ -31,10 +34,14 @@ def safe_norm(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.sqrt(torch.clamp((x * x).sum(dim=dim), min=1e-36))
 
 
-def edge_attention_plain(qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, S=32, Nh=2, Nk=3):
+def edge_attention_plain(qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, S=32, Nh=2, Nk=3,
+                         matmul=torch.matmul):
     """Plain PyTorch version: the packed StateUpdate of the JAX package
     (`StateUpdate._fused`, pesto_tpu/models/pesto.py:202-337) after the
-    gather. Returns (Zq [N, Nh*S], Zp [N, 3*Nh*S], x-major then head)."""
+    gather. Returns (Zq [N, Nh*S], Zp [N, 3*Nh*S], x-major then head).
+
+    `matmul` computes the three edge-MLP products (E K0e, h0 K1, h1 K2);
+    the tests pass emulations of the kernel's tensor-core arithmetic."""
     N, nn = ids.shape
     q = qp[:, :S]
     p = qp[:, S:].reshape(N, 3, S)
@@ -47,10 +54,10 @@ def edge_attention_plain(qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, S=32, Nh=2, 
     E = torch.cat([q_nn, safe_norm(p_nn, 2), proj_p, proj_pn], dim=2)
 
     per_atom = X_n @ K0[1 : 1 + 2 * S] + B0
-    h = E @ K0[1 + 2 * S :] + d[..., None] * K0[0] + per_atom[:, None, :]
+    h = matmul(E, K0[1 + 2 * S :]) + d[..., None] * K0[0] + per_atom[:, None, :]
     h = F.elu(h)
-    h = F.elu(h @ K1 + B1)
-    out = h @ K2 + B2                                        # [N, nn, 76]
+    h = F.elu(matmul(h, K1) + B1)
+    out = matmul(h, K2) + B2                                 # [N, nn, 76]
     Kq = out[..., :Nk]
     Kp3 = out[..., Nk : 4 * Nk]
     V0 = out[..., 4 * Nk : 4 * Nk + S]
@@ -91,7 +98,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def edge_attention_kernel(qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, S=32, Nh=2, Nk=3):
-    """Launch csrc/edge_attention.cu (S=32, Nh=2, Nk=3; nn in 8/16/32/64)."""
+    """Launch csrc/edge_attention.cu (S=32, Nh=2, Nk=3; nn in 8/16/32/64).
+    One launch, counted once, runs its two kernels: the per-atom pre-pass
+    and the tile kernel."""
     if not qp.is_cuda:
         raise ValueError("edge_attention_kernel: needs CUDA tensors")
     if (S, Nh, Nk) != (32, 2, 3):
@@ -116,10 +125,13 @@ def edge_attention_kernel(qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, S=32, Nh=2,
             )
     if ids.dtype != torch.int32 or ids.device != qp.device or not ids.is_contiguous():
         raise ValueError("edge kernel: ids must be a contiguous int32 tensor on the same device")
+    if qp.data_ptr() % 16:
+        raise ValueError("edge kernel: qp must be 16-byte aligned (its rows are copied 16 B at a time)")
     zq = torch.empty((N, Nh * S), dtype=dt, device=qp.device)
     zp = torch.empty((N, 3 * Nh * S), dtype=dt, device=qp.device)
+    per_atom = torch.empty((N, 4 * S), dtype=torch.float32, device=qp.device)  # scratch
     _build.call("edge_attention", "edge_attention", qp.device, _DTYPES[dt],
-                qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, zq, zp, N, nn)
+                qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, zq, zp, per_atom, N, nn)
     edge_attention_kernel.launches += 1
     return zq, zp
 

@@ -11,7 +11,7 @@ import torch
 from pesto_tpu.ops import geometric_pallas as gp
 from pesto_tpu_torch.models.config import LayerConfig
 from pesto_tpu_torch.models.pesto import StateUpdate
-from pesto_tpu_torch.ops.edge_attention import fused_edge_attention
+from pesto_tpu_torch.ops.edge_attention import edge_attention_plain, fused_edge_attention
 
 S, NH, NK = 32, 2, 3
 
@@ -124,3 +124,88 @@ def test_packed_weights_follow_weight_changes():
     su.to(torch.float32)
     K0 = su.packed_weights()[0]
     assert K0.requires_grad and K0.grad_fn is not None
+
+
+# ---- the kernel's product arithmetic, emulated on the CPU -------------------
+#
+# csrc/edge_attention.cu runs the three edge-MLP products on the tensor
+# cores. fp32: 3xTF32, x = hi + lo with hi = x rounded to 10 mantissa bits
+# (to nearest, ties away from zero: (bits + 0x1000) & ~0x1fff) and lo = x - hi,
+# which the tensor core truncates to 10 mantissa bits; a product is
+# lo*hi + hi*lo + hi*hi, summed in fp32. bf16: the A operands (E, h0, h1) are
+# rounded to bf16, the products summed in fp32.
+
+
+def _tf32_round(x):
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_3xtf32(a, b):
+    ah, bh = _tf32_round(a), _tf32_round(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    # the products of two 11-bit significands are exact in fp64
+    return (al.double() @ bh.double() + ah.double() @ bl.double() + ah.double() @ bh.double()).float()
+
+
+def _matmul_bf16_operands(a, b):
+    return a.bfloat16().float() @ b.bfloat16().float()
+
+
+def _port_plain(v, dt, matmul):
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dt).float()  # noqa: E731
+    zq, zp = edge_attention_plain(
+        t(v["qp"]), torch.from_numpy(v["ids"]), t(v["d"]), t(v["r"]), t(v["nq"]),
+        t(v["k0"]), t(v["b0"]), t(_block_diag(v["k1"])), t(v["b1"]),
+        t(_block_diag(v["k2"])), t(np.concatenate(v["b2"])), S=S, Nh=NH, Nk=NK, matmul=matmul,
+    )
+    return zq.numpy(), zp.numpy()
+
+
+def test_tf32_split_error_bound():
+    """hi + lo, as the tensor core reads them, is x to within 2^-21 |x|."""
+    x = torch.from_numpy(np.random.RandomState(0).standard_normal(100_000).astype(np.float32)) * 10
+    hi = _tf32_round(x)
+    assert torch.equal(_tf32_round(hi), hi) and torch.equal(_tf32_trunc(hi), hi)
+    err = ((hi.double() + _tf32_trunc(x - hi).double()) - x.double()).abs() / x.double().abs()
+    assert err.max().item() <= 2.0**-21
+
+
+@pytest.mark.parametrize("nn", [8, 64])
+def test_3xtf32_products_hold_fp32_tolerance(nn, record_property):
+    """The plain version with its three MLP products done as the fp32 kernel
+    does them (3xTF32) stays within the fp32 kernel's tolerance of the fp32
+    plain version and of the TPU kernel (interpret mode)."""
+    v = _inputs(64, nn, seed=100 + nn)
+    got = _port_plain(v, torch.float32, _matmul_3xtf32)
+    for ref_name, ref in (("plain", _port(v, torch.float32)), ("tpu", _tpu_kernel(v, jnp.float32))):
+        for name, a, b in zip(("zq", "zp"), got, ref):
+            np.testing.assert_allclose(a, b, atol=5e-5, rtol=1e-4)
+            record_property(f"max_abs_dev_{ref_name}_{name}", float(np.abs(a - b).max()))
+
+
+def test_single_tf32_misses_fp32_tolerance(record_property):
+    """One TF32 product per MLP stage (hi * hi) does not hold the fp32
+    tolerance: the reason the fp32 kernel takes three."""
+    v = _inputs(64, 64, seed=164)
+    got = _port_plain(v, torch.float32, lambda a, b: (_tf32_round(a).double() @ _tf32_round(b).double()).float())
+    ref = _port(v, torch.float32)
+    excess = max(float((np.abs(a - b) - 5e-5 - 1e-4 * np.abs(b)).max()) for a, b in zip(got, ref))
+    record_property("max_excess_over_fp32_tolerance", excess)
+    assert excess > 0
+
+
+@pytest.mark.parametrize("nn", [16, 64])
+def test_bf16_operand_products_match_tpu_kernel_bf16(nn, record_property):
+    """The plain version with E, h0 and h1 rounded to bf16 before each
+    product (the bf16 kernel's operands, fp32 sums) against the TPU kernel
+    in bf16, interpret mode."""
+    v = _inputs(64, nn, seed=200 + nn)
+    got = _port_plain(v, torch.bfloat16, _matmul_bf16_operands)
+    for name, a, b in zip(("zq", "zp"), got, _tpu_kernel(v, jnp.bfloat16)):
+        np.testing.assert_allclose(a, b, atol=5e-2, rtol=5e-2)
+        record_property(f"max_abs_dev_{name}", float(np.abs(a - b).max()))
