@@ -11,7 +11,15 @@ not beside this file). Phases, each of which fails the run on error:
      parallel);
   2. the kNN kernel against its plain version on the card: ids equal except
      on rows where the swapped neighbours' squared distances tie within
-     fp32 rounding of the Gram form; Dmax to rtol 1e-6;
+     fp32 rounding of the Gram form, ok equal; Dmax to rtol 1e-6; its
+     Morton keys equal to their plain version and the ids-only entry
+     (`knn_ids`, the main path's) equal to `knn_kernel`; per case the
+     tie rows, the kernel's time (ids only, and with the Dmax pass), its
+     device time by kernel, the share of pairs it evaluated, the largest
+     fill of a row's candidate buffer and the rows whose buffer was cut,
+     and the bound from the evaluated pairs beside the all-pairs bound;
+     up to random clouds at protein density in file order at 32768 and
+     131072 atoms;
   3. the edge-attention kernel against its plain version on the card at
      nn in {8,16,32,64}, N=8192 and a ragged N: fp32 atol 5e-5 / rtol 1e-4,
      bf16 atol 5e-2 / rtol 5e-2; its warm time at N=8192 on uniform random
@@ -35,7 +43,9 @@ not beside this file). Phases, each of which fails the run on error:
      version on the card, bit for bit, on seeded inputs that reach its
      branches, and its warm time at the scripts' shapes and, for the
      bisection and the row take, at the main path's (8192 atoms, 64
-     neighbours); then both scripts run in subprocesses,
+     neighbours), both by CUDA events over a loop of launches (the host's
+     launch path included) and as device time under torch.profiler, as
+     for the library call beside it; then both scripts run in subprocesses,
      `python -m pesto_tpu_torch.scripts.mosaic_repros` (every case) and
      `... .exp_gather all`, which must exit 0 and report the launches of
      their kernels (each script sets its counters to 0 when it starts).
@@ -44,6 +54,7 @@ The last three lines are the card's name and power limit, one JSON object
 with each kernel's numbers, and {"ok": true, "device": {...}}.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -87,6 +98,34 @@ def cuda_time_ms(fn, reps=10, warmup=2):
     return time_ms(fn, torch.device("cuda"), reps, warmup)
 
 
+def device_ms(fn, reps=20, warmup=2):
+    """(ms, {kernel: ms}): the device time of one fn() call, the sum of
+    the durations of the CUDA kernels it runs under torch.profiler, mean
+    over reps calls, in all and by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("Activity Buffer"):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return sum(by_name.values()), by_name
+
+
+def short_name(kernel):
+    """A CUDA kernel's name without its namespace and arguments."""
+    name = kernel.replace("(anonymous namespace)::", "")
+    name = name[: min(len(name), *(i for i in (name.find("<"), name.find("(")) if i >= 0))]
+    return (name.split() or [name])[-1].split("::")[-1][:40]
+
+
 def bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
     """{"bound_ms", "bound_by"}: the least time the card could take, from
     the operations at the peak of their type and the bytes at the memory
@@ -124,8 +163,9 @@ def padded_batch(clouds, NA):
 
 
 def check_knn_case(name, X, m, knn, dev):
-    """Kernel vs plain on one padded batch; returns (max |D| deviation,
-    kernel ms, plain ms, B, n_valid squared sum)."""
+    """Kernel vs plain on one padded batch (Morton keys too, and the
+    ids-only entry against knn_kernel); returns a dict of the case's
+    numbers."""
     import torch
 
     from pesto_tpu_torch.topology import _finish_topology
@@ -133,8 +173,18 @@ def check_knn_case(name, X, m, knn, dev):
     Xt = torch.tensor(X, device=dev)
     mt = torch.tensor(m, device=dev)
     xc = knn.center_coords(Xt, mt)
-    ids_k, ok_k, dmax_k = knn.knn_kernel(xc)
+    keys, nvalid = knn.morton_keys(xc)
+    if not (torch.equal(keys, knn.morton_keys_plain(xc)) and torch.equal(nvalid.cpu(), torch.tensor(
+            [int(c.sum()) for c in m], dtype=torch.int32))):
+        raise AssertionError(f"knn {name}: Morton keys differ from the plain version")
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    ids_k, ok_k, dmax_k = knn.knn_kernel(xc, stats=stats)
+    ids_i, ok_i = knn.knn_ids(Xt, mt)
     torch.cuda.synchronize()
+    if not (torch.equal(ids_i, ids_k) and torch.equal(ok_i, ok_k)):
+        raise AssertionError(f"knn {name}: the ids-only entry differs from knn_kernel")
+    pairs, fill, cut_rows, cuts = stats.tolist()
+    digest = hashlib.sha256(ids_k.cpu().numpy().tobytes() + ok_k.cpu().numpy().tobytes()).hexdigest()
     ids_p, ok_p, dmax_p = knn.knn_plain(xc)
     if not torch.equal(ok_k, ok_p):
         raise AssertionError(f"knn {name}: ok masks differ")
@@ -162,13 +212,23 @@ def check_knn_case(name, X, m, knn, dev):
     _, d_k, _ = _finish_topology(Xt, ids_k, ok_k, dmax_k)
     _, d_p, _ = _finish_topology(Xt, ids_p, ok_p, dmax_p)
     dmax_dev = (d_k - d_p).abs().max().item()
-    ms = cuda_time_ms(lambda: knn.knn_kernel(xc), reps=5, warmup=1)
+    # the main path's entry (ids only) and the one with the Dmax pass
+    ms = cuda_time_ms(lambda: knn.knn_kernel(xc, dmax=False), reps=5, warmup=1)
+    dmax_ms = cuda_time_ms(lambda: knn.knn_kernel(xc), reps=5, warmup=1)
+    dev_ms, split = device_ms(lambda: knn.knn_kernel(xc, dmax=False), reps=5)
     plain_ms = cuda_time_ms(lambda: knn.knn_plain(xc), reps=1, warmup=1)
     n2 = float((m.sum(1) ** 2).sum())
+    rows = X.shape[0] * X.shape[1]
     log(f"knn {name}: B={X.shape[0]} NA={X.shape[1]} tie-rows={n_rows} "
         f"max|D_kernel-D_plain|={dmax_dev:.3g} Dmax rel={rel:.3g} "
-        f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms")
-    return dmax_dev, ms, plain_ms, n2, X.shape[0] * X.shape[1]
+        f"kernel {ms:.4f} ms (with Dmax {dmax_ms:.4f} ms; device {dev_ms:.4f} ms: "
+        + ", ".join(f"{short_name(k)} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+        + f") plain {plain_ms:.3f} ms; pairs evaluated {pairs} = {pairs / n2:.4f} of n^2; "
+        f"largest buffer fill {fill} of {knn.SLOTS}, rows cut {cut_rows} ({cuts} cuts); bound "
+        f"{bound(8 * pairs, rows * (16 + 64 * 5))['bound_ms']:.5f} ms (evaluated pairs), "
+        f"{bound(8 * n2, rows * (16 + 64 * 5))['bound_ms']:.5f} ms (all pairs); "
+        f"sha256 of ids and ok {digest[:16]}")
+    return dict(dev=dmax_dev, ms=ms, plain_ms=plain_ms, pairs=pairs, n2=n2, rows=rows)
 
 
 def phase_knn(dev):
@@ -179,6 +239,7 @@ def phase_knn(dev):
     from pesto_tpu_torch.synthetic import random_structure_arrays, random_structure_record
 
     def cloud(n, seed, sort=True):
+        # protein density (synthetic._cloud); file order unless sorted
         X = random_structure_arrays(n_atoms=n, n_res=max(n // 8, 4), seed=seed)[0]
         return X[morton_order(X)] if sort else X
 
@@ -196,14 +257,16 @@ def phase_knn(dev):
         ("1OL5 golden @4096", [golden], 4096),
         ("main path 8191@8192", [synth], 8192),
         ("mega 30000@32768", [cloud(30000, 5)], 32768),
+        ("file-order 32767@32768", [cloud(32767, 5, sort=False)], 32768),
+        ("file-order 131071@131072", [cloud(131071, 9, sort=False)], 131072),
     ]
     worst = 0.0
     timing = {}
     for name, clouds, NA in cases:
         X, m = padded_batch(clouds, NA)
-        dd, ms, pms, n2, rows = check_knn_case(name, X, m, knn, dev)
-        worst = max(worst, dd)
-        timing[name] = (ms, pms, n2, rows)
+        case = check_knn_case(name, X, m, knn, dev)
+        worst = max(worst, case["dev"])
+        timing[name] = case
     return worst, timing
 
 
@@ -585,10 +648,14 @@ def phase_off_path(dev):
         ms = cuda_time_ms(run, reps=20)
         pms = cuda_time_ms(plain, reps=5, warmup=1)
         lms = cuda_time_ms(library, reps=20) if library else None
+        # device time beside the event-loop time, which also holds the
+        # host's launch path when the kernel is short
+        dms = device_ms(run)[0]
+        ldms = device_ms(library)[0] if library else None
         lim = bound(flops, nbytes)
-        log(f"{name} {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
-            f"{'none' if lms is None else f'{lms:.4f} ms'}, bound {lim['bound_ms']:.5f} ms "
-            f"({lim['bound_by']})")
+        log(f"{name} {label}: kernel {ms:.4f} ms (device {dms:.4f} ms), plain {pms:.4f} ms, library "
+            f"{'none' if lms is None else f'{lms:.4f} ms (device {ldms:.4f} ms)'}, bound "
+            f"{lim['bound_ms']:.5f} ms ({lim['bound_by']})")
         if in_line:
             stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **lim, "library_ms": lms}
     return stats
@@ -631,6 +698,7 @@ def main():
     except ImportError as e:
         print(f"chip_smoke: pesto_tpu_torch is not beside this script ({e})", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")  # also turns TF32 off
     card = card_line()
     log(f"card: {card}")
@@ -649,16 +717,16 @@ def main():
     off_path = phase_off_path(dev)
     script_launches = run_scripts()
 
-    knn_ms, knn_pms, n2, knn_rows = knn_t["main path 8191@8192"]
+    knn_main = knn_t["main path 8191@8192"]
     e_ms, e_pms, e_bound = edge_t[(64, torch.float32)]
     kernels = [
         {
             "name": "knn_top64", "route": "cuda", "source": "pesto_tpu_torch/csrc/knn.cu",
             "replaces": "pesto_tpu/ops/knn_pallas.py:177", "launches": launches["knn"],
-            "max_abs_err": knn_dev, "ms": knn_ms, "plain_ms": knn_pms,
-            # 8 fp32 operations per valid pair (dot 5, Gram 3); 16 B in and
-            # 64 x (4 B id + 1 B ok) out per row
-            **bound(8 * n2, knn_rows * (16 + 64 * 5)), "library_ms": None,
+            "max_abs_err": knn_dev, "ms": knn_main["ms"], "plain_ms": knn_main["plain_ms"],
+            # 8 fp32 operations per pair the kernel evaluates (dot 5, Gram
+            # 3); 16 B in and 64 x (4 B id + 1 B ok) out per row
+            **bound(8 * knn_main["pairs"], knn_main["rows"] * (16 + 64 * 5)), "library_ms": None,
         },
         {
             "name": "edge_attention", "route": "cuda",
@@ -673,12 +741,14 @@ def main():
          "launches": script_launches[name], **off_path[name]}
         for name, (source, replaces) in OFF_PATH.items()
     ]
-    log("kernel shapes: knn_top64 at the 8191-atom structure (NA=8192); "
+    log("kernel shapes: knn_top64 at the 8191-atom structure (NA=8192), the ids-only entry "
+        "of the main path, bound from the pairs it evaluated; "
         "edge_attention fp32 at N=8192, nn=64 (bound: 3xTF32 on the tensor cores); "
         "bisect_mask and take_rows at the "
         "main path's shapes, the other off-path kernels at their scripts' shapes; "
         "off-path launches are those of the two scripts' runs")
     log(f"end to end ms/structure: {json.dumps(e2e)}")
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ import torch
 
 from .device import resolve_device
 from .encoding import encode_features, encode_structure
-from .ops.knn import knn_topk
+from .ops.knn import knn_ids
 
 # atoms include the +1 sink row
 ATOM_BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 8448, 16384, 32768, 65536, 131072)
@@ -77,11 +77,11 @@ def pad_structure_arrays(X: np.ndarray, q: np.ndarray, M: np.ndarray,
 def compute_topology(ps: PaddedStructure, k: int = NUM_NN, device=None) -> PaddedStructure:
     """Fill ids_topk with the exact kNN ids (a tensor on `device`; None
     means the GPU). The model recomputes distances from the ids, so only
-    the ids are kept."""
+    the ids are computed: on the GPU the kernel runs no Dmax pass."""
     dev = resolve_device(device)
     X = torch.as_tensor(ps.X, dtype=torch.float32).to(dev)
     am = torch.as_tensor(ps.atom_mask, dtype=torch.float32).to(dev)
-    ids, _, _ = knn_topk(X[None], am[None], k)
+    ids, _ = knn_ids(X[None], am[None], k)
     return dataclasses.replace(ps, ids_topk=ids[0])
 
 

@@ -130,6 +130,19 @@ def call(source: str, entry: str, device: torch.device, *args) -> None:
     check(lib, status, f"{entry} launch")
 
 
+def host_call(source: str, entry: str, *ints) -> int:
+    """The 64-bit result of the host function `entry` of csrc/<source>.cu,
+    which takes C ints and launches nothing (a buffer size, say)."""
+    key = (source, entry, "host")
+    fn = _entries.get(key)
+    if fn is None:
+        fn = getattr(load(source), entry)
+        fn.argtypes = [ctypes.c_int] * len(ints)
+        fn.restype = ctypes.c_longlong
+        _entries[key] = fn
+    return fn(*ints)
+
+
 def on_cuda(x: torch.Tensor, what: str) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); raises for any other device."""

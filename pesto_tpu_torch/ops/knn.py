@@ -18,6 +18,16 @@ with sink row 0,
 
 With n <= k the pushed self/duplicate candidates stay ok, as in the exact
 path. The kernel is exact, so there is no overflow and no fallback.
+
+On a CUDA tensor one call launches: the Morton keys of each structure
+(`knn_prep`), a stable `torch.sort` of the keys, the sorted atoms with
+per-tile bounding boxes and the scan that selects (`knn_top64`), and, only
+where Dmax is asked for, a dense max over the valid pairs (`knn_dmax`).
+The scan takes each row's threshold from the 7 tiles of 32 sorted atoms
+around it, skips tiles by bounding box and compacts the candidates under
+the threshold into a buffer of SLOTS keys per row (csrc/knn.cu has the
+design). The constants below are the kernel's schedule, as csrc/knn.cu
+declares it (tests/test_torch_knn_schedule.py holds them equal).
 """
 
 import torch
@@ -28,6 +38,18 @@ K = 64
 PUSH = 4e9
 BIG = 1e10
 BIGHALF = 5e9
+# the kernel's schedule (csrc/knn.cu): atoms per block of the Morton pass,
+# sorted atoms per tile, tiles per group, the window (the row's tile and
+# WINDOW tiles each side), candidate slots per row, and the prune margin
+# MARGIN_REL * (w_row + w_tile) + MARGIN_ABS on top of the threshold
+PREP = 1024
+TILE = 32
+GROUP = 32 * TILE
+WINDOW = 3
+SLOTS = 128
+MARGIN_REL = 2e-6
+MARGIN_ABS = 1e-6
+INVALID_KEY = 1 << 30
 
 
 def center_coords(Xp: torch.Tensor, atom_mask: torch.Tensor) -> torch.Tensor:
@@ -82,6 +104,46 @@ def knn_plain(xc4: torch.Tensor, k: int = K, row_block: int = None):
     return ids, ok, dsq_max.sqrt()
 
 
+def _spread10(v: torch.Tensor) -> torch.Tensor:
+    """Insert two zero bits between each of the 10 low bits."""
+    v = (v | (v << 16)) & 0xFF0000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def morton_keys_plain(xc4: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's Morton keys: [B, NA, 4] -> [B, NA]
+    int32, the 30-bit Z-order code of each valid atom over its structure's
+    bounding box, 10 bits per axis in float64 (the logic of
+    `pesto_tpu/spatial.py` `morton_order`); the sink and padding get 2^30,
+    so a stable sort puts them last."""
+    X = xc4[..., :3].double()
+    valid = xc4[..., 3] >= 0
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=xc4.device)
+    lo = torch.where(valid[..., None], X, inf).amin(dim=1, keepdim=True)
+    hi = torch.where(valid[..., None], X, -inf).amax(dim=1, keepdim=True)
+    span = (hi - lo).clamp_min(1e-9)
+    q = torch.where(valid[..., None], (X - lo) / span * 1024, torch.zeros_like(X))
+    q = q.to(torch.int64).clamp_max(1023)
+    code = _spread10(q[..., 0]) | (_spread10(q[..., 1]) << 1) | (_spread10(q[..., 2]) << 2)
+    return torch.where(valid, code, INVALID_KEY).to(torch.int32)
+
+
+def morton_keys(xc4: torch.Tensor):
+    """(keys [B, NA] int32, valid atoms [B] int32): the plain version on a
+    CPU tensor, the kernel `knn_prep` on a CUDA tensor."""
+    if not _build.on_cuda(xc4, "morton_keys"):
+        return morton_keys_plain(xc4), (xc4[..., 3] >= 0).sum(dim=1).to(torch.int32)
+    _check_xc4(xc4, "morton_keys")
+    B, NA, _ = xc4.shape
+    part = torch.empty((B, -(-NA // PREP), 8), dtype=torch.float32, device=xc4.device)
+    keys = torch.empty((B, NA), dtype=torch.int32, device=xc4.device)
+    nvalid = torch.empty((B,), dtype=torch.int32, device=xc4.device)
+    _build.call("knn", "knn_prep", xc4.device, xc4, B, NA, part, keys, nvalid)
+    return keys, nvalid
+
+
 def knn_topk(Xp: torch.Tensor, atom_mask: torch.Tensor, k: int = K):
     """Exact top-k neighbour ids of every row of a padded batch.
 
@@ -89,28 +151,67 @@ def knn_topk(Xp: torch.Tensor, atom_mask: torch.Tensor, k: int = K):
     ok [B,NA,k] bool, Dmax [B] float32). A CPU tensor runs the plain
     version; a CUDA tensor runs the kernel (k <= 64) or raises."""
     xc4 = center_coords(Xp.to(torch.float32), atom_mask)
-    if not Xp.is_cuda:
-        if Xp.device.type != "cpu":
-            raise ValueError(f"knn_topk: unsupported device {Xp.device}")
+    if not _build.on_cuda(Xp, "knn_topk"):
         return knn_plain(xc4, k)
-    if k > K:
-        raise ValueError(f"the kNN kernel selects at most {K} neighbours, got k={k}")
+    _check_k(k)
     ids, ok, dmax = knn_kernel(xc4)
     return ids[..., :k], ok[..., :k], dmax
 
 
-def knn_kernel(xc4: torch.Tensor):
-    """Launch csrc/knn.cu on centred [B, NA, 4] float32 CUDA input."""
+def knn_ids(Xp: torch.Tensor, atom_mask: torch.Tensor, k: int = K):
+    """`knn_topk` without Dmax: (ids [B,NA,k] int32, ok [B,NA,k] bool).
+    On a CUDA tensor the kernel runs no Dmax pass."""
+    xc4 = center_coords(Xp.to(torch.float32), atom_mask)
+    if not _build.on_cuda(Xp, "knn_ids"):
+        return knn_plain(xc4, k)[:2]
+    _check_k(k)
+    ids, ok, _ = knn_kernel(xc4, dmax=False)
+    return ids[..., :k], ok[..., :k]
+
+
+def _check_k(k):
+    if k > K:
+        raise ValueError(f"the kNN kernel selects at most {K} neighbours, got k={k}")
+
+
+def _check_xc4(xc4, what):
     if not (xc4.is_cuda and xc4.dtype == torch.float32 and xc4.dim() == 3
             and xc4.shape[-1] == 4 and xc4.is_contiguous()):
-        raise ValueError("knn_kernel: needs a contiguous [B, NA, 4] float32 CUDA tensor")
+        raise ValueError(f"{what}: needs a contiguous [B, NA, 4] float32 CUDA tensor")
+
+
+def knn_kernel(xc4: torch.Tensor, dmax: bool = True, stats: torch.Tensor = None):
+    """Launch csrc/knn.cu on centred [B, NA, 4] float32 CUDA input.
+
+    Returns (ids, ok, Dmax), Dmax None when dmax is False. stats, if given,
+    is a zeroed [4] int64 CUDA tensor that receives the pairs evaluated,
+    the largest fill of a row's candidate buffer, the rows whose buffer
+    was cut, and the cuts."""
+    _check_xc4(xc4, "knn_kernel")
+    if stats is not None:
+        _build.need_cuda(stats, (torch.int64,), 1, "knn_kernel stats")
+        if stats.numel() < 4:
+            raise ValueError("knn_kernel: stats needs 4 entries")
     B, NA, _ = xc4.shape
-    ids = torch.empty((B, NA, K), dtype=torch.int32, device=xc4.device)
-    ok = torch.empty((B, NA, K), dtype=torch.bool, device=xc4.device)
-    bits = torch.zeros((B,), dtype=torch.int32, device=xc4.device)
-    _build.call("knn", "knn_top64", xc4.device, xc4, B, NA, ids, ok, bits)
+    dev = xc4.device
+    keys, nvalid = morton_keys(xc4)
+    perm = torch.sort(keys, dim=1, stable=True).indices
+    words = _build.host_call("knn", "knn_scratch_floats", B, NA)
+    scratch = torch.empty((words,), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, NA, K), dtype=torch.int32, device=dev)
+    ok = torch.empty((B, NA, K), dtype=torch.bool, device=dev)
+    if stats is None:
+        _build.call("knn", "knn_top64", dev, xc4, perm, B, NA, scratch, nvalid, ids, ok)
+    else:
+        _build.call("knn", "knn_top64_stats", dev, xc4, perm, B, NA, scratch, nvalid, ids, ok,
+                    stats)
+    d = None
+    if dmax:
+        bits = torch.zeros((B,), dtype=torch.int32, device=dev)
+        _build.call("knn", "knn_dmax", dev, xc4, B, NA, bits)
+        d = bits.view(torch.float32).sqrt()
     knn_kernel.launches += 1
-    return ids, ok, bits.view(torch.float32).sqrt()
+    return ids, ok, d
 
 
 knn_kernel.launches = 0
