@@ -43,7 +43,9 @@ not beside this file). Phases, each of which fails the run on error:
   5. the off-path kernels, those of the two experiment scripts
      (csrc/mosaic_repros.cu, csrc/exp_gather.cu): each against its plain
      version on the card, bit for bit, on seeded inputs that reach its
-     branches, and its warm time at the scripts' shapes and, for the
+     branches (for bisect_mask also the adversarial rows of every kind at
+     widths 1, 63, 64, 65, 511, 512, 8191, 30000 and SHARED_RAISED // 4,
+     and at a base 4 bytes past alignment), and its warm time at the scripts' shapes and, for the
      bisection and the row take, at the main path's (8192 atoms, 64
      neighbours), and for the lane take also at the kNN select's
      (scripts/exp_gather.py:122), by CUDA events over a loop of 100
@@ -754,6 +756,53 @@ def main_path_inputs(dev):
     return ids, dsq.contiguous()
 
 
+# (width, rows) of the bisect_mask checks: the odd widths, a row that fills
+# two stages, one that fills one, and the widest the wrapper takes (one
+# stage and the rest through L2), each with more rows than resident blocks
+BISECT_CASES = ((1, 64), (63, 64), (64, 64), (65, 64), (511, 64), (512, 64), (8191, 600),
+                (30000, 300), (None, 300))
+
+
+def check_bisect_rows(dev):
+    """bisect_mask against bisect_mask_plain on the card, bit for bit, on
+    the adversarial rows of every kind (scripts/mosaic_repros.py
+    `adversarial_rows`) at each width of BISECT_CASES (None: the widest,
+    SHARED_RAISED // 4), and on [300, 8192] and [300, 8191] rows whose base
+    lies 4 bytes past 16-byte alignment. Returns the largest |error|."""
+    import torch
+
+    from pesto_tpu_torch.ops import mosaic_repros as mr
+    from pesto_tpu_torch.scripts import mosaic_repros as script
+
+    def rows_of(seed, rows, cols, offset=0):
+        """The adversarial rows on the card, `offset` floats past the
+        allocation's aligned base (a contiguous view)."""
+        flat = torch.from_numpy(script.adversarial_rows(seed, rows, cols)).reshape(-1).to(dev)
+        return torch.cat([flat.new_zeros(offset), flat])[offset:].view(rows, cols)
+
+    cases = []
+    for cols, rows in BISECT_CASES:
+        cols = cols or mr.SHARED_RAISED // 4
+        cases.append((f"[{rows},{cols}] adversarial rows", rows_of(cols, rows, cols)))
+    for cols in (8192, 8191):
+        cases.append((f"[300,{cols}] adversarial rows at a base 4 bytes past alignment",
+                      rows_of(cols + 1, 300, cols, offset=1)))
+    err = 0.0
+    for label, d in cases:
+        out = mr.bisect_mask(d)
+        torch.cuda.synchronize()
+        ref = mr.bisect_mask_plain(d)
+        if not mr.same_bits(out, ref):
+            bad = (out != ref).any(dim=1).nonzero().flatten()[:8].tolist()
+            raise AssertionError(f"bisect_mask ({label}): kernel and plain version differ in rows {bad}")
+        err = max(err, max_abs_err(out, ref))
+        per_row = ref.sum(dim=1)
+        log(f"bisect_mask {label} (data_ptr % 16 = {d.data_ptr() % 16}): bit for bit equal to the "
+            f"plain version; {per_row.min().item()}-{per_row.max().item()} entries per row under the "
+            "threshold")
+    return err
+
+
 def phase_off_path(dev):
     """Every variant of the seven kernels against its plain version, bit for
     bit; one timed case per kernel for the kernels line (others logged).
@@ -792,6 +841,7 @@ def phase_off_path(dev):
             raise AssertionError(f"{name} ({label}): kernel and plain version differ")
         errs[name] = max(errs.get(name, 0.0), max_abs_err(out, ref))
         log(f"{name} {label}: bit for bit equal to the plain version")
+    errs["bisect_mask"] = max(errs["bisect_mask"], check_bisect_rows(dev))
 
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((4096, 1280), generator=g, device=dev)
@@ -885,7 +935,7 @@ def phase_off_path(dev):
             f", bound {lim['bound_ms']:.5f} ms ({lim['bound_by']})")
         if in_line:
             stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **lim, "library_ms": lms,
-                           "host_us": hus}
+                           "host_us": hus, "device_ms": dms}
     return stats
 
 

@@ -222,7 +222,7 @@ def make_cases(dev):
     idx8 = torch.randint(0, 128, (8, 128), generator=g, device=dev, dtype=torch.int32)
     idx_sel = torch.randint(0, 128, (8192, 64), generator=g, device=dev, dtype=torch.int32)
     idx8_long, idx_sel_long = idx8.long(), idx_sel.long()
-    ids_main = main_path_inputs(dev)[0]
+    ids_main, dsq_main = main_path_inputs(dev)
     L = ids_main.shape[1]
     x = torch.randn((4096, 1280), generator=g, device=dev)
     one = torch.ones_like(x)
@@ -273,6 +273,9 @@ def make_cases(dev):
          empty([((1, 128), i32)], lambda: x1.new_empty((1, 128), dtype=i32)), None),
         ("bisect_mask", "[256,512] f32", False, lambda o: o["mosaic_repros"].bisect_mask_kernel(d_small),
          empty([((256, 512), b8)], lambda: torch.empty_like(d_small, dtype=b8)), None),
+        ("bisect_mask", "[8192,8192] f32 squared distances of synth8191 (main path)", True,
+         lambda o: o["mosaic_repros"].bisect_mask_kernel(dsq_main),
+         empty([((8192, 8192), b8)], lambda: torch.empty_like(dsq_main, dtype=b8)), None),
         ("edge_attention", "N=8192 nn=64 fp32", True,
          lambda o: o["edge_attention"].edge_attention_kernel(*edge),
          empty([((8192, 64), f32), ((8192, 192), f32), ((8192, 128), f32)],

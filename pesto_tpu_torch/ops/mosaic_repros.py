@@ -12,6 +12,16 @@ Each replaces one TPU kernel of `docs/mosaic_repros.py`:
 All five compute exact functions, so each kernel equals its plain version
 bit for bit (`same_bits`). Every public function runs the plain version for
 a CPU tensor and launches the kernel, or raises, for a CUDA tensor.
+
+`bisect_mask_plain` is the TPU kernel's loop: 16 steps, each counting the
+row's values at or under the pivot. The CUDA kernel computes the same mask
+another way: a step's test count(d <= mid) < 64 is exactly v64 > mid, with
+v64 the row's 64th smallest non-NaN value (+inf when there are fewer), so
+it finds v64 once per row (a rank count among the few values under a bound
+taken from the threads' minima, or a radix select over the floats' order-
+preserving keys when many values tie there), replays the 16 steps on it as
+scalar code and writes hi >= d. It reads each row from memory once and is
+bound by bytes.
 """
 
 import torch
@@ -170,7 +180,8 @@ def bisect_mask_plain(d: torch.Tensor) -> torch.Tensor:
 
 
 def bisect_mask_kernel(d: torch.Tensor) -> torch.Tensor:
-    """[rows, cols] float32 -> bool; a row must fit in SHARED_RAISED bytes."""
+    """[rows, cols] float32 -> bool, equal to `bisect_mask_plain`; a row
+    must fit in SHARED_RAISED bytes."""
     _build.need_cuda(d, _F32, 2, "bisect_mask_kernel")
     if 4 * d.shape[1] > SHARED_RAISED:
         raise ValueError(f"bisect_mask_kernel: rows of {d.shape[1]} do not fit in shared memory")

@@ -91,6 +91,94 @@ def bisecting_rows(gen, shape):
     return d
 
 
+def bisect_mids(d):
+    """[rows, BISECT_STEPS] float32: the pivots that `bisect_mask_plain`'s
+    loop visits on each row of the numpy float32 array d."""
+    f32 = np.float32
+    lo = np.zeros(d.shape[0], f32)
+    hi = np.full(d.shape[0], ops.BISECT_HI, f32)
+    mids = []
+    for _ in range(ops.BISECT_STEPS):
+        mid = f32(0.5) * (lo + hi)
+        up = (d <= mid[:, None]).sum(axis=1) < ops.BISECT_K
+        lo, hi = np.where(up, mid, lo), np.where(up, hi, mid)
+        mids.append(mid)
+    return np.stack(mids, axis=1)
+
+
+def _pivot(rng):
+    """A pivot the loop visits when it goes up or down at random."""
+    lo, hi = np.float32(0), np.float32(ops.BISECT_HI)
+    for _ in range(rng.randint(1, ops.BISECT_STEPS + 1)):
+        mid = np.float32(0.5) * (lo + hi)
+        lo, hi = (mid, hi) if rng.rand() < 0.5 else (lo, mid)
+    return mid
+
+
+ADVERSARIAL_KINDS = ("scaled", "v64_at_pivot", "all_at_pivot", "narrow_band", "few", "all_nan",
+                     "signed_zeros", "mostly_inf")
+
+
+def adversarial_rows(seed, rows, cols):
+    """[rows, cols] float32 numpy rows that reach the corners of the
+    bisection, the kinds of ADVERSARIAL_KINDS in turn by row:
+
+      scaled        |randn| scaled to 1e-2..1e6, with 5% NaN, some +inf,
+                    -inf, -0.0, +0.0 and negatives, and up to 40 values set
+                    exactly to pivots the plain loop visits on the row;
+      v64_at_pivot  63 values under a visited pivot, a few exactly on it,
+                    the rest above it (the 64th smallest is the pivot);
+      all_at_pivot  every value the pivot (the 64th ties with all others);
+      narrow_band   values within 1% above a pivot (one first digit);
+      few           fewer than 64 values that are not NaN;
+      all_nan       NaN only;
+      signed_zeros  -0.0, +0.0, negatives and -inf with some positives;
+      mostly_inf    +inf in 95% of the places, the rest positive.
+    """
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    d = np.empty((rows, cols), f32)
+    for r in range(rows):
+        kind = ADVERSARIAL_KINDS[r % len(ADVERSARIAL_KINDS)]
+        p = _pivot(rng)
+        u = rng.rand(cols)
+        if kind == "scaled":
+            row = np.abs(rng.standard_normal(cols)) * 10.0 ** rng.uniform(-2, 6)
+            for lo, hi, v in ((0.0, 0.05, np.nan), (0.05, 0.06, np.inf), (0.06, 0.07, -np.inf),
+                              (0.07, 0.08, -0.0), (0.08, 0.09, 0.0)):
+                row[(u >= lo) & (u < hi)] = v
+            neg = (u >= 0.09) & (u < 0.12)
+            row[neg] = -row[neg]
+            row = row.astype(f32)
+            mids = bisect_mids(row[None])[0]
+            ties = rng.choice(cols, min(40, cols), replace=False)
+            row[ties] = mids[rng.randint(0, len(mids), len(ties))]
+        elif kind == "v64_at_pivot":
+            row = np.where(u < 0.5, p * 1.5, np.inf).astype(f32) + f32(1.0)
+            below = rng.choice(cols, min(ops.BISECT_K - 1, cols), replace=False)
+            row[below] = (p * rng.rand(len(below))).astype(f32)
+            rest = np.setdiff1d(np.arange(cols), below)
+            row[rest[: rng.randint(1, 4)]] = p
+        elif kind == "all_at_pivot":
+            row = np.full(cols, p, f32)
+        elif kind == "narrow_band":
+            row = (p * (1.0 + 0.01 * u)).astype(f32)
+        elif kind == "few":
+            row = np.full(cols, np.nan, f32)
+            keep = rng.choice(cols, min(ops.BISECT_K - 1 - rng.randint(0, 10), cols), replace=False)
+            row[keep] = (rng.rand(len(keep)) * 2 * p).astype(f32)
+        elif kind == "all_nan":
+            row = np.full(cols, np.nan, f32)
+        elif kind == "signed_zeros":
+            row = np.choose(rng.randint(0, 5, cols), [np.full(cols, -0.0), np.zeros(cols),
+                                                      -rng.rand(cols), np.full(cols, -np.inf),
+                                                      rng.rand(cols) * p]).astype(f32)
+        else:  # mostly_inf
+            row = np.where(u < 0.95, np.inf, rng.rand(cols) * p).astype(f32)
+        d[r] = row
+    return d
+
+
 def case_bisecthang(dev, gen, shape=(256, 512)):
     out = []
     for name, d in (("the TPU script's |randn| rows", torch.randn(shape, generator=gen).abs()),

@@ -14,6 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental import pallas as pl
 
 from pesto_tpu_torch.ops import mosaic_repros as ops
@@ -157,3 +159,170 @@ def test_script_runs_every_case_on_cpu(capsys):
     out = capsys.readouterr().out
     assert out.count("bit for bit equal to the plain version: True") == 10
     assert "False" not in out
+
+
+# ------------------------------------------------ bisect_mask's select, emulated
+#
+# csrc/mosaic_repros.cu's bisect_mask does not count per step: it finds v64,
+# the row's 64th smallest value that is not NaN, replays the 16 steps on it
+# (a step goes up exactly when v64 > mid) and writes hi >= d. It finds v64
+# under a bound: each thread's least value, the 8th least of those in each
+# warp, and of those the least that 64 threads' minima are at or under; the
+# values at or under the bound are ranked, or, when there are more than BISECT_CANDIDATES of them, a radix
+# select over the row's order-preserving keys takes over. The emulation
+# below runs those steps in numpy, with the kernel's own thread layout,
+# bound, candidate limit and digit widths, read from the source. (Rows
+# wider than one stage of shared memory, which read their rest through L2,
+# are not emulated: every width here fits.)
+
+
+def _cu_constants():
+    """The `constexpr` int and float scalars of csrc/mosaic_repros.cu, in
+    order: {name: value}."""
+    import re
+
+    src = pathlib.Path(ops.__file__).resolve().parent.parent / "csrc" / "mosaic_repros.cu"
+    found = {}
+    for kind, name, expr in re.findall(r"^constexpr (int|float) (\w+) = ([^;]+);", src.read_text(), re.M):
+        expr = re.sub(r"(\d)f\b", r"\1", expr).replace("/", "//" if kind == "int" else "/")
+        found[name] = eval(expr, {"__builtins__": {}}, dict(found))
+    return found
+
+
+CU = _cu_constants()
+DIGITS = (CU["BISECT_DIGIT1"], CU["BISECT_DIGIT2"], CU["BISECT_DIGIT3"])
+BISECT_WIDTHS = (1, 63, 64, 65, 511, 512, 8191)
+
+
+def order_keys(x):
+    """uint32 keys in the order of the float32 values x (none NaN)."""
+    b = np.asarray(x, np.float32).view(np.uint32)
+    return b ^ np.where(b >> 31, np.uint32(0xFFFFFFFF), np.uint32(0x80000000))
+
+
+def key_value(k):
+    k = np.uint32(k)
+    return (k ^ np.uint32(0x80000000) if k >> 31 else ~k).view(np.float32)
+
+
+def find_bin(hist, k):
+    """(bin holding the k-th counted key, k less the keys below that bin),
+    as the kernel's block scan finds them."""
+    cum = np.cumsum(hist)
+    b = int(np.searchsorted(cum, k))
+    return b, k - int(cum[b] - hist[b])
+
+
+def radix_select(keys, k):
+    """The k-th least of the keys by the kernel's three digit sweeps."""
+    d1, d2, d3 = DIGITS
+    p1, k = find_bin(np.bincount(keys >> (32 - d1), minlength=1 << d1), k)
+    shared = keys[(keys >> (32 - d1)) == p1]
+    b2, k = find_bin(np.bincount((shared >> d3) & ((1 << d2) - 1), minlength=1 << d2), k)
+    p2 = (p1 << d2) | b2
+    b3, _ = find_bin(np.bincount(keys[(keys >> d3) == p2] & ((1 << d3) - 1), minlength=1 << d3), k)
+    return (p2 << d3) | b3
+
+
+def emulate_bisect_row(row, pad=0):
+    """(mask, v64, "rank" or "radix") of one float32 row whose base lies
+    `pad` floats past 16-byte alignment, by the kernel's steps."""
+    threads, K = CU["BISECT_THREADS"], ops.BISECT_K
+    # value c sits in float4 slot (pad + c) // 4 of the stage; thread t holds
+    # slots 4t .. 4t + 3 and sweeps slots past those every `threads`
+    held, slot = CU["BISECT_HELD_SLOTS"], (pad + np.arange(len(row))) // 4
+    thread = np.where(slot < held, slot // CU["BISECT_HELD"], (slot - held) % threads)
+    lane_min = np.full(threads, np.inf, np.float32)
+    np.minimum.at(lane_min, thread[~np.isnan(row)], row[~np.isnan(row)])
+    lane_keys = order_keys(lane_min)
+    warp_kth = np.sort(lane_keys.reshape(CU["BISECT_WARPS"], 32), axis=1)[:, CU["BISECT_LANES"] - 1]
+    # the least of the warps' bounds that 64 lanes' minima are at or under
+    bound = key_value(min(b for b in warp_kth if (lane_keys <= b).sum() >= K))
+    cand = order_keys(row[row <= bound])
+    if np.isfinite(bound):
+        assert len(cand) >= K  # 64 lanes hold a value at or under the bound
+    if len(cand) <= CU["BISECT_CANDIDATES"]:
+        # v64 is the largest key with fewer than 64 keys under it, and hi
+        # the largest replay of those keys; +inf and BISECT_HI under 64 keys
+        path, v64, hi = "rank", np.float32(np.inf), np.float32(CU["BISECT_HI"])
+        if len(cand) >= K:
+            less = (cand[None, :] < cand[:, None]).sum(axis=1)
+            v64 = key_value(cand[less < K].max())
+            hi = max(replay(key_value(c)) for c in cand[less < K])
+    else:
+        path, v64 = "radix", key_value(radix_select(order_keys(row[~np.isnan(row)]), K))
+        hi = replay(v64)
+    assert hi == replay(v64)
+    return hi >= row, v64, path
+
+
+def replay(v64):
+    """The 16 steps from v64 (a step goes up when v64 > mid): hi."""
+    lo, hi = np.float32(0), np.float32(CU["BISECT_HI"])
+    for _ in range(CU["BISECT_STEPS"]):
+        mid = np.float32(0.5) * (lo + hi)
+        lo, hi = (mid, hi) if v64 > mid else (lo, mid)
+    return hi
+
+
+def emulate_bisect(d, pad=0):
+    rows = [emulate_bisect_row(r, pad) for r in d]
+    return np.stack([m for m, _, _ in rows]), [v for _, v, _ in rows], [p for _, _, p in rows]
+
+
+def nth_smallest(row, n=64):
+    vals = np.sort(row[~np.isnan(row)])
+    return vals[n - 1] if len(vals) >= n else np.float32(np.inf)
+
+
+@pytest.mark.parametrize("name", ["BISECT_K", "BISECT_STEPS", "BISECT_HI"])
+def test_bisect_constants_match_the_kernel(name):
+    assert CU[name] == getattr(ops, name)
+    assert sum(DIGITS) == 32
+
+
+@pytest.mark.parametrize("pad", [0, 1, 3])
+@pytest.mark.parametrize("cols", BISECT_WIDTHS)
+def test_bisect_select_emulation_matches_plain(cols, pad):
+    """The kernel's steps give bisect_mask_plain's mask bit for bit on
+    every kind of adversarial row, at every alignment of the row's base,
+    and v64 is the 64th smallest value."""
+    d = script.adversarial_rows(cols, 2 * len(script.ADVERSARIAL_KINDS), cols)
+    mask, v64, paths = emulate_bisect(d, pad)
+    want = ops.bisect_mask_plain(torch.from_numpy(d)).numpy()
+    np.testing.assert_array_equal(mask, want)
+    for row, v in zip(d, v64):
+        assert v == nth_smallest(row)  # -0.0 and +0.0 may stand for each other
+    assert "rank" in paths
+    if cols > CU["BISECT_CANDIDATES"]:
+        assert "radix" in paths  # ties at the bound: the radix select ran too
+
+
+def test_bisect_select_emulation_matches_tpu_kernel(tpu_kernels):
+    """Against JAX's case_bisecthang kernel in interpret mode at its
+    [256, 512] shape, on adversarial rows and on the script's rows."""
+    for d in (script.adversarial_rows(5, 256, 512), bisecting_rows(6)):
+        got = np.asarray(tpu_kernels[8](jnp.asarray(d)))
+        np.testing.assert_array_equal(emulate_bisect(d)[0], got)
+        np.testing.assert_array_equal(ops.bisect_mask_plain(torch.from_numpy(d)).numpy(), got)
+
+
+@pytest.mark.parametrize("seed", range(40))
+def test_bisect_select_emulation_random_widths(seed):
+    """Seeded widths 1-700 and magnitudes 1e-3..1e7, with NaN, ±inf, -0.0,
+    negatives and ties at visited pivots."""
+    rng = np.random.RandomState(1000 + seed)
+    cols = int(rng.randint(1, 701))
+    d = script.adversarial_rows(seed, 8, cols)
+    d[0] = np.abs(rng.standard_normal(cols)).astype(np.float32) * np.float32(10.0 ** rng.uniform(-3, 7))
+    np.testing.assert_array_equal(emulate_bisect(d)[0], ops.bisect_mask_plain(torch.from_numpy(d)).numpy())
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(cols=st.integers(1, 700), exponent=st.floats(-3, 7), seed=st.integers(0, 2**31 - 1))
+def test_bisect_select_emulation_hypothesis(cols, exponent, seed):
+    """Widths and magnitudes drawn by hypothesis: the emulation against
+    bisect_mask_plain, bit for bit."""
+    d = script.adversarial_rows(seed, 8, cols)
+    d[1::2] *= np.float32(10.0 ** exponent)
+    np.testing.assert_array_equal(emulate_bisect(d)[0], ops.bisect_mask_plain(torch.from_numpy(d)).numpy())
