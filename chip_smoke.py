@@ -263,6 +263,7 @@ and {"ok": true, "device": {...}}.
 
 import hashlib
 import json
+import re
 import os
 import subprocess
 import sys
@@ -352,6 +353,42 @@ def short_name(kernel):
     name = kernel.replace("(anonymous namespace)::", "")
     name = name[: min([len(name)] + [i for i in (name.find("<"), name.find("(")) if i >= 0])]
     return (name.split() or [name])[-1].split("::")[-1][:40]
+
+
+def demangled(sym):
+    """The last name of a mangled nested symbol (_ZN <len><name> ..., the
+    namespaces dropped), with <fp32> or <bf16> for a float or bfloat16
+    template argument."""
+    rest, name = sym[3:] if sym.startswith("_ZN") else "", sym
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group(0)
+        name, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
+    if rest.startswith("If"):
+        name += "<fp32>"
+    elif rest.startswith("I13__nv_bfloat16"):
+        name += "<bf16>"
+    return name
+
+
+def ptxas_report(log_text):
+    """One line per kernel of a `-Xptxas -v` log: its name (without
+    namespace, its template argument kept), registers, spill stores and
+    loads in bytes."""
+    out, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = demangled(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill}")
+            name, spill = None, ""
+    return out
 
 
 def bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
@@ -673,9 +710,8 @@ def phase_edge_bwd(dev):
     from pesto_tpu_torch.ops import _build
     from pesto_tpu_torch.ops import edge_attention as ea
 
-    for line in _build.build_logs.get("edge_attention_bwd", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"edge_attention_bwd ptxas: {line.strip()}")
+    for line in ptxas_report(_build.build_logs.get("edge_attention_bwd", "")):
+        log(f"edge_attention_bwd ptxas: {line}")
     n_table, n_shard, row0 = EDGE_BWD_SHARD
     B, NA, pad = EDGE_BWD_SINK
     cases = [(f"nn={nn} N={N}", dict(N=N, nn=nn), 0) for nn in (8, 16, 32, 64) for N in (8192, 1000)]
@@ -688,9 +724,16 @@ def phase_edge_bwd(dev):
         for i, (name, kw, r0) in enumerate(cases):
             args, gzq, gzp = edge_bwd_case(dt=dt, dev=dev, seed=31 * i + 7, **kw)
             got = ea.edge_attention_backward_kernel(*args, gzq, gzp, row0=r0)
+            again = ea.edge_attention_backward_kernel(*args, gzq, gzp, row0=r0)
             torch.cuda.synchronize()
             if not all(torch.isfinite(x).all() for x in got):
                 raise AssertionError(f"edge backward {name} {dt}: not finite")
+            # the weight gradients are the blocks' partials summed in a fixed
+            # order: two launches give the same bits (the table's gradient,
+            # summed by atomics, may not)
+            if not all(torch.equal(x, y) for x, y in zip(got[4:], again[4:])):
+                raise AssertionError(f"edge backward {name} {dt}: dK0 .. dB2 differ between two launches")
+            del again
             if dt == torch.float32:
                 plain = ea.edge_attention_backward_plain(*args, gzq, gzp, row0=r0)
                 e_plain = rel_errors(got, plain)
@@ -712,7 +755,8 @@ def phase_edge_bwd(dev):
                           f"({ea.GRAD_NAMES[ratio.index(max(ratio))]}; tol {EDGE_BWD_BF16_RATIO})")
                 err = max(e_kern)
             worst[dt] = max(worst.get(dt, 0.0), err)
-            line = f"edge backward {name} {str(dt)[6:]}: per-tensor rel L2 {detail}"
+            line = (f"edge backward {name} {str(dt)[6:]}: per-tensor rel L2 {detail}; dK0 .. dB2 bit-identical "
+                    "over two launches")
             if name == "nn=64 N=8192":
                 N = 8192
                 f = lambda: ea.edge_attention_backward_kernel(*args, gzq, gzp)  # noqa: E731
@@ -738,7 +782,8 @@ def phase_edge_bwd(dev):
             log(line)
             if bad:
                 raise AssertionError(f"edge backward {name} {dt}: beyond tolerance")
-    log(f"edge backward: largest |kernel - plain| over the fp32 cases {abs_err:.3g}")
+    log(f"edge backward: largest |kernel - plain| over the fp32 cases {abs_err:.3g}; the weight gradients "
+        f"bit-identical over two launches in all {2 * len(cases)} cases")
     return worst, abs_err, timing
 
 
@@ -3705,7 +3750,9 @@ def main():
         "launches": train["float32 launches"]["edge_bwd"], "max_abs_err": bwd_abs,
         "max_rel_l2": {str(dt)[6:]: e for dt, e in bwd_err.items()},
         "ms": b32["ms"], "plain_ms": b32["plain_ms"], **b32["bound"], "library_ms": None,
-        "host_us": b32["host_us"], "device_ms": b32["device_ms"],
+        "host_us": b32["host_us"], "device_ms": b32["device_ms"], "bf16_ms": bwd_t[torch.bfloat16]["ms"],
+        "bf16_bound_ms": bwd_t[torch.bfloat16]["bound"]["bound_ms"], "weight_grads_bit_identical": True,
+        "ptxas": ptxas_report(_build.build_logs.get("edge_attention_bwd", "")),
         "launches_per_phase": {
             **{f"phase6 train {dtype}": train[f"{dtype} launches"]["edge_bwd"] for dtype in ("float32", "bfloat16")},
             **{f"phase6 eval {dtype}": train[f"{dtype} launches"]["eval_edge_bwd"]

@@ -144,8 +144,10 @@ def edge_attention_backward_plain(qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, gra
     are all zero reach no loss and are skipped, as the kernel skips them:
     with finite inputs every term of theirs is an exact zero. `matmul`
     computes every product of the edge MLP, forward and backward, and
-    `rnd` is applied to `out`; the tests pass emulations of the kernel's
-    bf16 arithmetic."""
+    `rnd` is applied to h0, h1, `out` and dE, the values that the kernel
+    keeps in its working type and reads outside a product too (elu' reads
+    h0 and h1, the edge features dE); the tests pass emulations of the
+    kernel's bf16 arithmetic."""
     N, nn = ids.shape
     act = torch.nonzero((grad_zq != 0).any(1) | (grad_zp != 0).any(1)).squeeze(1)
     n = act.shape[0]
@@ -163,8 +165,8 @@ def edge_attention_backward_plain(qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, gra
     nrm_m, nrm_n = torch.sqrt(torch.clamp(sq_m, min=1e-36)), torch.sqrt(torch.clamp(sq_n, min=1e-36))
     E = torch.cat([nb[..., :S], nrm_m, (p[:, None] * r_a[..., None]).sum(2), (p_m * r_a[..., None]).sum(2)], 2)
     X_n = torch.cat([q, nrm_n], 1)
-    h0 = F.elu(matmul(E, K0e) + d_a[..., None] * k0d + (X_n @ K0x + B0)[:, None])
-    h1 = F.elu(matmul(h0, K1) + B1)
+    h0 = rnd(F.elu(matmul(E, K0e) + d_a[..., None] * k0d + (X_n @ K0x + B0)[:, None]))
+    h1 = rnd(F.elu(matmul(h0, K1) + B1))
     out = rnd(matmul(h1, K2) + B2)
     Kq, Kp3, V0, V1 = out[..., :Nk], out[..., Nk : 4 * Nk], out[..., 4 * Nk : 4 * Nk + S], out[..., 4 * Nk + S :]
     Q = nq_a.reshape(n, 2, Nh, Nk)
@@ -202,7 +204,7 @@ def edge_attention_backward_plain(qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, gra
     dK1 = matmul(flat(h0).T, flat(dpre1)) * m1
     dpre0 = matmul(dpre1, K1.T) * _elu_grad(h0)
     dK0e = matmul(flat(E).T, flat(dpre0))
-    dE = matmul(dpre0, K0e.T)
+    dE = rnd(matmul(dpre0, K0e.T))
     dpa = dpre0.sum(1)                                                   # [n, 4S]
     dX = dpa @ K0x.T                                                     # [n, 2S]
     dK0 = torch.cat([(d_a[..., None] * dpre0).sum((0, 1))[None], X_n.T @ dpa, dK0e])
@@ -391,9 +393,10 @@ def edge_attention_backward_kernel(qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, gr
     Zq [N, Nh*S] and Zp [N, 3*Nh*S]. Returns the gradients of (qp, d, r,
     nq, K0, B0, K1, B1, K2, B2), None where `need` says no (the kernel
     writes d's, r's and nq's only where asked). One launch, counted once,
-    runs its kernels: the per-atom pre-pass, the tile kernel, the per-atom
-    gradient, the fixed-order sum of the weight gradients' partials and,
-    in bf16, the cast of the fp32 table gradient."""
+    runs its kernels: the per-atom pre-pass, in fp32 the weights' copy in
+    fragment order, the tile kernel, the per-atom gradient, the
+    fixed-order sum of the weight gradients' partials and, in bf16, the
+    cast of the fp32 table gradient."""
     N, nn, n_table = _check("edge backward kernel", qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2,
                             S, Nh, Nk, row0)
     dt, dev = qp.dtype, qp.get_device()
@@ -404,6 +407,11 @@ def edge_attention_backward_kernel(qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, gr
     need = tuple(bool(x) for x in need)
     if len(need) != len(GRAD_NAMES):
         raise ValueError(f"edge backward kernel: need has one flag per gradient of {GRAD_NAMES}")
+    # the kernel copies these 16 bytes at a time (qp's alignment is
+    # checked above): a view that starts between two 16-byte boundaries
+    # goes as an aligned copy
+    ids, d, r, K0, K1, grad_zq, grad_zp = (
+        x if x.data_ptr() % 16 == 0 else x.clone() for x in (ids, d, r, K0, K1, grad_zq, grad_zp))
     code = _DTYPES[dt]
     floats = _BWD_SCRATCH(code, N, nn, n_table)
     if not 0 <= floats < 2**31:

@@ -248,9 +248,11 @@ def test_bf16_rounding_emulation():
 def test_bf16_emulation_within_the_rule(nn, record_property):
     """The backward with the kernel's bf16 roundings (every product's
     operands, among them E, h0, h1 and the gradients, rounded to bf16 and
-    summed in fp32; out rounded to bf16; the results rounded to bf16) is,
-    per gradient tensor, within twice the plain bf16 backward's error
-    against the float64 backward of the same bf16 inputs."""
+    summed in fp32; h0, h1, out and dE rounded to bf16 where the kernel
+    keeps them in shared memory, so elu' and the edge features read the
+    rounded values; the results rounded to bf16) is, per gradient tensor,
+    within twice the plain bf16 backward's error against the float64
+    backward of the same bf16 inputs."""
     args, gq, gp, row0 = _case("skipped", nn)
     bf = [a.bfloat16() if a.is_floating_point() else a for a in (*args, gq, gp)]
     ref = ea.edge_attention_backward_plain(*[a.double() if a.is_floating_point() else a for a in bf])
@@ -387,3 +389,226 @@ def test_function_on_cpu_gives_the_plain_gradient(monkeypatch):
         a = a * m1 if what == "K1" else a * m2 if what == "K2" else a
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=F64_ATOL, rtol=0, err_msg=what)
     assert ea.edge_attention_backward_kernel.launches == 0
+
+
+# ---- the backward kernel's shared-memory layout and index maps ----------------
+#
+# numpy mirrors of csrc/edge_attention_bwd.cu's formulas: the tile swizzle
+# `ti`, the lane addresses of the Mm<T> fragment loaders (ldmatrix x4, .trans,
+# and fp32's 32-bit reads), the weights' padded strides, the fragment order
+# of the dK1 / dK2 partials in shared memory (`pk_dense`) and the butterfly
+# sums (`lanes_scatter`). The kernel itself runs only on the card.
+
+TE, H = 64, 128
+
+
+def _swz(e):
+    return ((e & 3) << 1) | ((e >> 2) & 1)
+
+
+def _ti(e, c, nbytes):
+    """Element (e, c) of a [TE][H] tile whose 16-byte chunks are XOR-swizzled by the row."""
+    v = 16 // nbytes
+    return e * H + ((c // v) ^ _swz(e)) * v + c % v
+
+
+@pytest.mark.parametrize("nbytes", [4, 2])
+def test_tile_swizzle_is_a_bijection_without_bank_conflicts(nbytes):
+    idx = np.array([[_ti(e, c, nbytes) for c in range(H)] for e in range(TE)])
+    assert sorted(idx.ravel()) == list(range(TE * H))
+    v = 16 // nbytes
+    for e0 in range(0, TE, 8):  # ldmatrix: 8 rows at one chunk, 8 distinct 16-byte bank groups
+        for c in range(0, H, v):
+            assert len({(idx[e0 + r, c] * nbytes // 16) % 8 for r in range(8)}) == 8
+    if nbytes == 4:  # fp32's transposed reads: rows e0 + q (q < 4), columns n0 .. n0 + 7: 32 banks
+        for e0 in range(0, TE, 4):
+            for n0 in range(0, H, 8):
+                assert len({idx[e0 + q, n0 + g] % 32 for q in range(4) for g in range(8)}) == 32
+
+
+def _ldmatrix(mem, addrs, trans, words=8):
+    """ldmatrix .x4 on a flat array of 16-bit slots: lane l points at row l % 8
+    of matrix l // 8 (8 slots from addrs[l]); returns out[lane][j] = the two
+    slots lane gets from matrix j (non-trans: row lane / 4, slots 2 (lane % 4)
+    and + 1; trans: slots lane / 4 of rows 2 (lane % 4) and + 1)."""
+    out = np.zeros((32, 4, 2))
+    for j in range(4):
+        rows = [mem[addrs[8 * j + r]: addrs[8 * j + r] + words] for r in range(8)]
+        for t in range(32):
+            if trans:
+                out[t, j] = [rows[2 * (t % 4)][t // 4], rows[2 * (t % 4) + 1][t // 4]]
+            else:
+                out[t, j] = rows[t // 4][2 * (t % 4): 2 * (t % 4) + 2]
+    return out
+
+
+def _frag_a16(frag):
+    """The 16 x 16 A of m16n8k16 from each lane's 4 registers of 2 values."""
+    a = np.zeros((16, 16))
+    for t in range(32):
+        g, q = t // 4, t % 4
+        for j, (r, c) in enumerate(((g, 2 * q), (g + 8, 2 * q), (g, 2 * q + 8), (g + 8, 2 * q + 8))):
+            a[r, c: c + 2] = frag[t, j]
+    return a
+
+
+def _frag_b16(frag):
+    """The 16 x 16 B (k, n) of two m16n8k16 n tiles: registers 0, 1 tile 0, 2, 3 tile 1."""
+    b = np.zeros((16, 16))
+    for t in range(32):
+        g, q = t // 4, t % 4
+        for j, (k, n) in enumerate(((2 * q, g), (2 * q + 8, g), (2 * q, g + 8), (2 * q + 8, g + 8))):
+            b[k: k + 2, n] = frag[t, j]
+    return b
+
+
+@pytest.mark.parametrize("kind", ["a_rows", "a_cols", "b_tile", "b_kn", "b_nk"])
+def test_bf16_fragments_through_the_layout(kind, record_property):
+    """Each bf16 loader's lane addresses, read back as ldmatrix delivers them,
+    give the operand it means, and their product is A @ B or A.T @ B."""
+    rng = np.random.RandomState(3)
+    X = rng.standard_normal((TE, H))
+    tile = np.zeros(TE * H)
+    for e in range(TE):
+        for c in range(H):
+            tile[_ti(e, c, 2)] = X[e, c]
+    W = rng.standard_normal((H, H))
+    ld = H + 8  # K0e's padded stride
+    wmem = np.zeros(H * ld)
+    for k in range(H):
+        wmem[k * ld: k * ld + H] = W[k]
+    e0, k0, i0, n0 = 16, 32, 48, 80
+    lanes = range(32)
+    if kind == "a_rows":
+        addrs = [_ti(e0 + (l & 7) + 8 * ((l >> 3) & 1), k0 + 8 * (l >> 4), 2) for l in lanes]
+        got, want = _frag_a16(_ldmatrix(tile, addrs, False)), X[e0: e0 + 16, k0: k0 + 16]
+    elif kind == "a_cols":  # A = X^T: rows i0 .., k = the tile's rows e0 ..
+        addrs = [_ti(e0 + (l & 7) + 8 * (l >> 4), i0 + 8 * ((l >> 3) & 1), 2) for l in lanes]
+        got, want = _frag_a16(_ldmatrix(tile, addrs, True)), X[e0: e0 + 16, i0: i0 + 16].T
+    elif kind == "b_tile":  # B = the tile, k = its rows
+        addrs = [_ti(e0 + (l & 7) + 8 * ((l >> 3) & 1), n0 + 8 * (l >> 4), 2) for l in lanes]
+        got, want = _frag_b16(_ldmatrix(tile, addrs, True)), X[e0: e0 + 16, n0: n0 + 16]
+    elif kind == "b_kn":  # B = W, stored [k][n]
+        addrs = [(k0 + (l & 7) + 8 * ((l >> 3) & 1)) * ld + n0 + 8 * (l >> 4) for l in lanes]
+        got, want = _frag_b16(_ldmatrix(wmem, addrs, True)), W[k0: k0 + 16, n0: n0 + 16]
+    else:  # B = W^T, W stored [n][k]
+        addrs = [(n0 + (l & 7) + 8 * (l >> 4)) * ld + k0 + 8 * ((l >> 3) & 1) for l in lanes]
+        got, want = _frag_b16(_ldmatrix(wmem, addrs, False)), W[n0: n0 + 16, k0: k0 + 16].T
+    np.testing.assert_array_equal(got, want)
+    if kind in ("b_kn", "b_nk"):  # the padded rows put ldmatrix's 8 rows on 8 bank groups
+        for j in range(4):
+            assert len({(addrs[8 * j + r] * 2 // 16) % 8 for r in range(8)}) == 8
+    other = rng.standard_normal((16, 16))
+    prod = got @ other if kind.startswith("a") else other @ got
+    ref = want @ other if kind.startswith("a") else other @ want
+    np.testing.assert_allclose(prod, ref, rtol=0, atol=1e-12)
+    record_property("checked", kind)
+
+
+@pytest.mark.parametrize("kind", ["a_rows", "a_cols", "b_tile"])
+def test_fp32_fragments_through_the_layout(kind):
+    """fp32 (tf32 m16n8k8): a_rows by ldmatrix on the b16 view (a 16-byte row
+    is 4 fp32 values: lane t gets value t % 4 of row t / 4), a_cols and b_tile
+    by 32-bit reads; the fragments hold A (g | g + 8, q | q + 4) and B (k = q
+    | q + 4, n = g) of the intended operand, and their product is A @ B."""
+    rng = np.random.RandomState(4)
+    X = rng.standard_normal((TE, H))
+    tile = np.zeros(TE * H)
+    for e in range(TE):
+        for c in range(H):
+            tile[_ti(e, c, 4)] = X[e, c]
+    e0, k0, i0, n0 = 8, 40, 16, 64
+    a = np.zeros((16, 8))
+    b = np.zeros((8, 16))
+    for t in range(32):
+        g, q = t // 4, t % 4
+        if kind == "a_rows":
+            for j in range(4):  # lanes 8 j .. point at matrix j's rows
+                addr = [_ti(e0 + (l & 7) + 8 * ((l >> 3) & 1), k0 + 4 * (l >> 4), 4) for l in range(32)][8 * j + g]
+                r, c = (g + 8 * (j & 1), q + 4 * (j >> 1))
+                a[r, c] = tile[addr + q]
+        elif kind == "a_cols":
+            for r, c, e, i in ((g, q, e0 + q, i0 + g), (g + 8, q, e0 + q, i0 + g + 8),
+                               (g, q + 4, e0 + q + 4, i0 + g), (g + 8, q + 4, e0 + q + 4, i0 + g + 8)):
+                a[r, c] = tile[_ti(e, i, 4)]
+        else:
+            for k, n, e, c in ((q, g, e0 + q, n0 + g), (q + 4, g, e0 + q + 4, n0 + g),
+                               (q, g + 8, e0 + q, n0 + 8 + g), (q + 4, g + 8, e0 + q + 4, n0 + 8 + g)):
+                b[k, n] = tile[_ti(e, c, 4)]
+    if kind == "a_rows":
+        want = X[e0: e0 + 16, k0: k0 + 8]
+        np.testing.assert_array_equal(a, want)
+    elif kind == "a_cols":
+        want = X[e0: e0 + 8, i0: i0 + 16].T
+        np.testing.assert_array_equal(a, want)
+    else:
+        want = X[e0: e0 + 8, n0: n0 + 16]
+        np.testing.assert_array_equal(b, want)
+    other = rng.standard_normal((8, 16) if kind != "b_tile" else (16, 8))
+    got = a @ other if kind != "b_tile" else other @ b
+    np.testing.assert_allclose(got, want @ other if kind != "b_tile" else other @ want, rtol=0, atol=1e-12)
+
+
+def _pk_dense(i):
+    """Mirror of pk_dense: the dense partial index (K1 at 128 * 128, K2 at
+    2 * 128 * 128, row stride 76) of shared partial i, or -1."""
+    S_, NK_, OV0 = 32, 3, 12
+    PK_K2, PK_K2V = 12 * 512, 12 * 512 + 4 * 256
+    if i < PK_K2:
+        job, r, kind = i // 512, i % 512, 0
+    elif i < PK_K2V:
+        job, r, kind = (i - PK_K2) // 256, (i - PK_K2) % 256, 1
+    else:
+        job, r, kind = (i - PK_K2V) // 512, (i - PK_K2V) % 512, 2
+    n, ln, k = r // 128, (r // 4) % 32, r % 4
+    row, col = (ln >> 2) + 8 * (k >> 1), 8 * n + 2 * (ln & 3) + (k & 1)
+    if kind == 0:
+        i0 = 16 * job if job < 4 else 2 * S_ + 16 * ((job - 4) & 3)
+        c0 = 0 if job < 2 else S_ if job < 4 else 2 * S_ + 32 * ((job - 4) >> 2)
+        return ("K1", i0 + row, c0 + col)
+    if kind == 1:
+        r2 = 16 * job + row
+        ok = (r2 < S_ and col < NK_) or (r2 >= S_ and NK_ <= col < OV0)
+        return ("K2", r2, col) if ok else None
+    return ("K2", 2 * S_ + 16 * (job & 3) + row, OV0 + 32 * (job >> 2) + col)
+
+
+def test_shared_partials_cover_the_diagonal_blocks_once():
+    """The fragment order of the dK1 and dK2 partials in shared memory maps
+    one to one onto the diagonal blocks of K1 (q, p, v) and K2 (q, p, v)."""
+    got = [d for d in (_pk_dense(i) for i in range(12 * 512 + 4 * 256 + 8 * 512)) if d is not None]
+    assert len(got) == len(set(got))
+    m1, m2 = ea.block_masks(torch.zeros(128, 128), torch.zeros(128, 76))
+    want = {("K1", r, c) for r, c in zip(*np.nonzero(m1.numpy()))}
+    want |= {("K2", r, c) for r, c in zip(*np.nonzero(m2.numpy()))}
+    assert set(got) == want
+
+
+def _lanes_scatter(v, m, R):
+    """Mirror of lanes_scatter<N, R>(v, lane, m) over 32 lanes' values v[32][N]."""
+    v = v.copy()
+    N = v.shape[1]
+    for r in range(R):
+        mr, half = m << (R - 1 - r), N >> (r + 1)
+        new = v[:, :half].copy()
+        for lane in range(32):
+            up, other = bool(lane & mr), lane ^ mr
+            keep = v[lane, half + np.arange(half)] if up else v[lane, np.arange(half)]
+            send = v[other, np.arange(half)] if other & mr else v[other, half + np.arange(half)]
+            new[lane] = keep + send
+        v = new
+    return v
+
+
+@pytest.mark.parametrize("N,R,m", [(8, 3, 4), (12, 2, 8), (12, 2, 1), (4, 2, 1), (2, 1, 4)])
+def test_butterfly_sums_land_where_the_kernel_reads_them(N, R, m):
+    """lanes_scatter: lane l ends with the sum, over the 2^R lanes that differ
+    in bits m .. 2^(R-1) m, of index (N / 2^R) ((l / m) % 2^R) + j."""
+    vals = np.random.RandomState(N * R + m).standard_normal((32, N))
+    out = _lanes_scatter(vals, m, R)
+    mask = ((1 << R) - 1) * m
+    for lane in range(32):
+        group = [l for l in range(32) if l & ~mask == lane & ~mask]
+        for j in range(N >> R):
+            np.testing.assert_allclose(out[lane, j], vals[group, (N >> R) * ((lane // m) % (1 << R)) + j].sum(),
+                                       rtol=1e-12)
