@@ -28,6 +28,7 @@ from .device import resolve_device
 from .encoding import encode_features, encode_structure
 from .ops.knn import knn_ids
 from .spatial import morton_order
+from .utils import tracing
 
 # atoms include the +1 sink row
 ATOM_BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 8448, 16384, 32768, 65536, 131072)
@@ -239,7 +240,8 @@ class BatchEncoder:
             sig["sets"][k] = self._alloc(key, pin)
         s = sig["sets"][k]
         if s["ready"] is not None:
-            s["ready"].synchronize()
+            with tracing.span("predict_batch.buffer_wait"):
+                s["ready"].synchronize()
             s["ready"] = None
         return s
 

@@ -23,7 +23,6 @@ import io
 import queue
 import sys
 import threading
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
@@ -37,11 +36,14 @@ from .device import resolve_device
 from .encoding import encode_features, encode_structure, std_elements, std_names, std_resnames, vocab_codes
 from .io import read_structure
 from .models import PestoConfig, PestoModel
+from .ops import edge_attention as _edge
+from .ops import knn as _knn
 from .ops.knn import knn_ids
 from .parallel.mesh import batch_sharding, canonical, replicate, replicated_sharding
 from .parallel.sp import ShardedForward
 from .port import load_reference_checkpoint
 from .structure import concatenate_chains, preprocess_structure
+from .utils import tracing
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -78,13 +80,15 @@ class Predictor:
             self._replicas = replicate(self.model, replicated_sharding(mesh))
         self._sp_cache = {}  # mesh content -> ShardedForward
         self._sp_lock = threading.Lock()
-        # cumulative host ms inside predict_batch (the record encode pool,
-        # the batch encode and copy, the blocked readback) and its calls;
-        # the stages overlap under the pipeline, so they attribute time
-        # rather than add up to it
-        self.stage_ms = {"record_encode": 0.0, "batch_encode": 0.0,
-                         "device_wait": 0.0, "batch_calls": 0}
-        self._stage_lock = threading.Lock()
+        # cumulative host ms inside predict_batch and its calls: the
+        # always-on totals of its spans predict_batch.record_encode (the
+        # record encode pool), .batch_encode (the batch encode and copy) and
+        # .collect (the blocked readback); the stages overlap under the
+        # pipeline, so they attribute time rather than add up to it
+        self._stages = tracing.Sums({"record_encode": 0.0, "batch_encode": 0.0,
+                                     "device_wait": 0.0, "batch_calls": 0})
+        self.stage_ms = self._stages.ms
+        self._stage_lock = self._stages.lock
         # idle encoders, at most ENC_POOL_IDLE: a burst of concurrent callers
         # closes the encoders past it when they return
         self._enc_pool: "queue.Queue[BatchEncoder]" = queue.Queue(maxsize=self.ENC_POOL_IDLE)
@@ -254,10 +258,6 @@ class Predictor:
         q = np.concatenate([f for f, fl in zip(feats, self.cfg.feature_flags) if fl], axis=1)
         return Xd, q, M
 
-    def _add_ms(self, stage, t0):
-        with self._stage_lock:
-            self.stage_ms[stage] += (time.perf_counter() - t0) * 1e3
-
     def warmup(self, buckets=None, batch_sizes=(1,)) -> None:
         """Build the CUDA libraries (on a card) and run one chunk per
         (na, nr) bucket and batch size, so that a server's first requests
@@ -297,7 +297,9 @@ class Predictor:
         (EncodeError) or is over the largest bucket (SizeError) gives None
         and a line on stderr; it never fails the others. Up to
         `pipeline_depth` chunks stay in flight on the device while the host
-        encodes the next one and reads back the oldest."""
+        encodes the next one and reads back the oldest. While spans are
+        recorded (`utils.tracing`), the call is a `predict_batch` span whose
+        stages are its children, each with the call's id."""
         ndev = len(self._data_devices) if self.mesh is not None else 1
         need_sets = max(2, (int(pipeline_depth) + 1) * ndev)
         try:
@@ -310,47 +312,50 @@ class Predictor:
         if enc is None:
             enc = BatchEncoder(num_threads, n_sets=need_sets)
         try:
-            with torch.no_grad():  # grad mode is per thread
+            # grad mode is per thread
+            with torch.no_grad(), tracing.span("predict_batch", structures=len(structures)) as call:
                 return self._predict_batch_impl(structures, atoms_per_call, num_threads,
-                                                pipeline_depth, enc)
+                                                pipeline_depth, call, enc)
         finally:
             try:
                 self._enc_pool.put_nowait(enc)
             except queue.Full:
                 enc.close()
 
-    def _predict_batch_impl(self, structures, atoms_per_call, num_threads, pipeline_depth, encoder):
+    def _predict_batch_impl(self, structures, atoms_per_call, num_threads, pipeline_depth, call, encoder):
         compact = self._compact_spec() is not None
+        cid = call.span_id if call is not None else None
 
         def encode_record(arg):
             i, s = arg
-            try:
-                return self._encode_record(s)
-            except Exception as e:  # noqa: BLE001 — one bad record gives None
-                print(f"EncodeError: structure {i}: {type(e).__name__}: {e}", file=sys.stderr)
-                return None
+            with tracing.span("predict_batch.encode_record", parent=record_stage, call=cid, structure=i):
+                try:
+                    return self._encode_record(s)
+                except Exception as e:  # noqa: BLE001 — one bad record gives None
+                    print(f"EncodeError: structure {i}: {type(e).__name__}: {e}", file=sys.stderr)
+                    return None
 
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(max(1, int(num_threads))) as pool:
-            recs = list(pool.map(encode_record, enumerate(structures)))
-        self._add_ms("record_encode", t0)
-        with self._stage_lock:
-            self.stage_ms["batch_calls"] += 1
+        with tracing.span("predict_batch.record_encode", sums=self._stages, key="record_encode",
+                          call=cid) as record_stage:
+            with ThreadPoolExecutor(max(1, int(num_threads))) as pool:
+                recs = list(pool.map(encode_record, enumerate(structures)))
+        self._stages.count("batch_calls")
 
         def n_res(rec):
             return rec[3] if compact else rec[2].shape[1]
 
         buckets = {}
-        for i, rec in enumerate(recs):
-            if rec is None:
-                continue
-            try:
-                key = (pick_bucket(rec[0].shape[0] + 1, batching.ATOM_BUCKETS),
-                       pick_bucket(max(n_res(rec), 1), batching.RES_BUCKETS))
-            except ValueError as e:
-                print(f"SizeError: structure {i}: {e}", file=sys.stderr)
-                continue
-            buckets.setdefault(key, []).append(i)
+        with tracing.span("predict_batch.plan", call=cid):
+            for i, rec in enumerate(recs):
+                if rec is None:
+                    continue
+                try:
+                    key = (pick_bucket(rec[0].shape[0] + 1, batching.ATOM_BUCKETS),
+                           pick_bucket(max(n_res(rec), 1), batching.RES_BUCKETS))
+                except ValueError as e:
+                    print(f"SizeError: structure {i}: {e}", file=sys.stderr)
+                    continue
+                buckets.setdefault(key, []).append(i)
         out = [None] * len(structures)
 
         devices = self._data_devices if self.mesh is not None else [self.device]
@@ -359,20 +364,33 @@ class Predictor:
         def submit_part(part, na, nr, dev):
             """Encode and launch one chunk's part on `dev`; the probabilities
             come back to pinned host memory asynchronously, behind an
-            event."""
-            te = time.perf_counter()
-            # on a card a copy out of the encoder's pinned buffers, which
-            # the encoder refills only after the copy's event
-            b = encoder.encode([recs[i] for i in part], na=na, nr=nr,
-                               n_features=self.cfg.em_n0, device=dev)
-            self._add_ms("batch_encode", te)
-            probs = self._knn_forward_sigmoid(b.X, b.q, b.M, b.atom_mask, nr=nr if compact else None)
-            if not probs.is_cuda:
-                return probs, None
-            host = torch.empty(probs.shape, dtype=probs.dtype, pin_memory=True)
-            host.copy_(probs, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
+            event. Its spans' attributes: the bucket, B, the real and padded
+            atoms and the bytes copied to the card; the kNN and edge
+            launches."""
+            with tracing.span("predict_batch.batch_encode", sums=self._stages, key="batch_encode",
+                              call=cid) as sp:
+                # on a card a copy out of the encoder's pinned buffers, which
+                # the encoder refills only after the copy's event
+                b = encoder.encode([recs[i] for i in part], na=na, nr=nr,
+                                   n_features=self.cfg.em_n0, device=dev)
+                if sp is not None:
+                    sent = (b.X, b.q, b.M, b.atom_mask) if b.X.is_cuda else ()
+                    sp.attrs.update(na=na, nr=nr, B=len(part), padded_atoms=len(part) * na,
+                                    real_atoms=sum(int(recs[i][0].shape[0]) for i in part),
+                                    h2d_bytes=sum(t.nbytes for t in sent))
+            with tracing.span("predict_batch.launch", call=cid) as sp:
+                if sp is not None:
+                    knn0, edge0 = _knn.knn_kernel.launches, _edge.edge_attention_kernel.launches
+                probs = self._knn_forward_sigmoid(b.X, b.q, b.M, b.atom_mask, nr=nr if compact else None)
+                host, ready = probs, None
+                if probs.is_cuda:
+                    host = torch.empty(probs.shape, dtype=probs.dtype, pin_memory=True)
+                    host.copy_(probs, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record()
+                if sp is not None:
+                    sp.attrs.update(knn_launches=_knn.knn_kernel.launches - knn0,
+                                    edge_launches=_edge.edge_attention_kernel.launches - edge0)
             return host, ready
 
         def submit(dispatch, na, nr):
@@ -390,12 +408,11 @@ class Predictor:
             return results
 
         def collect(chunk, results):
-            tc = time.perf_counter()
-            for _, ready in results:
-                if ready is not None:
-                    ready.synchronize()
-            probs = np.concatenate([host.numpy() for host, _ in results])
-            self._add_ms("device_wait", tc)
+            with tracing.span("predict_batch.collect", sums=self._stages, key="device_wait", call=cid):
+                for _, ready in results:
+                    if ready is not None:
+                        ready.synchronize()
+                probs = np.concatenate([host.numpy() for host, _ in results])
             for j, i in enumerate(chunk):
                 out[i] = probs[j, : n_res(recs[i])]
 

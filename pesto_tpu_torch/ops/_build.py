@@ -19,6 +19,8 @@ import time
 
 import torch
 
+from ..utils import tracing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -112,7 +114,9 @@ class Entry:
     (`host=True`) takes ints only, launches nothing and returns its 64-bit
     result (a buffer size, say). Creating an entry builds and loads
     nothing; the first call builds and loads its library (`load`) and sets
-    the C function's argument types once."""
+    the C function's argument types once. While spans are recorded
+    (`utils.tracing`), a launch stamps its name and host time just before
+    the C call."""
 
     bound = []  # the entries bound so far in this process
 
@@ -157,6 +161,7 @@ class Entry:
             return fn(*args)
         vals = [a.data_ptr() if p else a for p, a in zip(self._ptr, args)]
         dev = args[self._first].get_device()
+        tracing.launch(self.name)
         if dev == self._device():
             status = fn(*vals, self._stream(dev))
         else:

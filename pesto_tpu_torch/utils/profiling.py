@@ -6,13 +6,15 @@ plus the Logger ETA helper. Here:
   - StageTimer: named stage accumulator with throughput summary;
   - device_trace: context manager around a `torch.profiler` trace of the
     host and, where there is one, the GPU, written to a directory as a
-    Chrome trace (view it in Perfetto or chrome://tracing);
+    Chrome trace (view it in Perfetto or chrome://tracing) with the
+    program's spans (`tracing`) beside the profiler's events;
   - chained_timing: the time of one iteration of a function whose first
     argument is chained through the iterations: CUDA events on a CUDA
     tensor, the host clock on the CPU.
 """
 
 import contextlib
+import json
 import os
 import time
 from collections import defaultdict
@@ -20,6 +22,8 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+from . import tracing
 
 
 class StageTimer:
@@ -58,17 +62,39 @@ class StageTimer:
 def device_trace(log_dir: str):
     """torch.profiler trace of the block, written to
     `log_dir/trace.json` (Chrome trace format). Records the GPU's kernels
-    too where CUDA is available. Yields the profiler, whose
-    `key_averages()` gives the sums by operation and kernel."""
+    too where CUDA is available, and the spans the program recorded in the
+    block (category `program_span`, on their own threads, in the trace's
+    time base). Yields the profiler, whose `key_averages()` gives the sums
+    by operation and kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    start = time.time_ns()
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _add_spans(path, [s for s in tracing.take().spans if s.start_ns >= start])
+
+
+def _add_spans(path: str, spans) -> None:
+    """Write `tracing` spans into the Chrome trace at `path`: complete
+    events whose microseconds count from the trace's
+    `baseTimeNanoseconds`, as the profiler's own events do."""
+    with open(path) as f:
+        trace = json.load(f)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    trace["traceEvents"].extend(
+        {"ph": "X", "cat": "program_span", "name": s.name, "pid": pid, "tid": s.thread,
+         "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": dict(s.attrs, span_id=s.span_id, parent_id=s.parent_id)}
+        for s in spans)
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def _first_tensor(out):
