@@ -1,16 +1,20 @@
 """An edge-attention kernel of this checkout beside another checkout's, on
 the card, for a change to the kernel:
 
-    python3 edge_ab.py --other DIR [--reps 20]
+    python3 edge_ab.py --other DIR [--tolerance] [--reps 20]
     python3 edge_ab.py --backward --other DIR [--reps 20]
 
 DIR is another checkout of the repository (a parent commit unpacked with
 `git archive`). The default mode builds both checkouts'
 `csrc/edge_attention.cu` and runs them on chip_smoke.py's seeded phase-3
-inputs (N = 8192, nn in 8, 16, 32, 64, fp32 and bf16; the other's wrapper
-is called with its own arguments, so row0 = 0 here): their outputs
-compared bit for bit, and each kernel's warm time taken in turns (other,
-this, this, other) by CUDA events. Exits 1 if any output differs.
+inputs (N = 8192 at nn 8, 16, 32 and 64, N = 32768 at nn 8 and 64, fp32
+and bf16; the other's wrapper is called with its own arguments, so row0 =
+0 here): their outputs compared bit for bit, and each kernel's warm time
+taken in turns (other, this, this, other) by CUDA events. Exits 1 if any
+output differs. With `--tolerance`, for a kernel whose sums run in
+another order, each kernel is instead held to phase 3's tolerance against
+the plain version (FP32_TOL, BF16_TOL), and exits 1 if either is beyond
+it; whether the outputs are bit for bit equal is still reported.
 
 `--backward` does the same for `csrc/edge_attention_bwd.cu` on phase 3's
 seeded backward inputs (`chip_smoke.edge_bwd_case`), at N = 8192 for nn 8,
@@ -45,27 +49,50 @@ def load_other(root):
     return importlib.import_module(f"{name}.ops.edge_attention")
 
 
-def forward_ab(other, ea, dev, reps):
-    """(rows, every output bit for bit) of the forward kernels."""
+FORWARD_CASES = ((8192, 8), (8192, 16), (8192, 32), (8192, 64), (32768, 8), (32768, 64))
+
+
+def excess(got, want, tol):
+    """The largest amount by which an output of `got` lies beyond tol of
+    `want` (inf if it is not finite); <= 0 within it."""
+    worst = float("-inf")
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        if not a.isfinite().all():
+            return float("inf")
+        worst = max(worst, ((a - b).abs() - tol["atol"] - tol["rtol"] * b.abs()).max().item())
+    return worst
+
+
+def forward_ab(other, ea, dev, reps, tolerance):
+    """(rows, ok) of the forward kernels: ok is every output bit for bit
+    equal or, with `tolerance`, both kernels within phase 3's tolerance of
+    the plain version."""
     import torch
 
-    from chip_smoke import cuda_time_ms, edge_inputs
+    from chip_smoke import BF16_TOL, FP32_TOL, cuda_time_ms, edge_inputs
 
-    rows, same = [], True
-    for dt in (torch.float32, torch.bfloat16):
-        for nn in (8, 16, 32, 64):
-            x = edge_inputs(8192, nn, dt, dev, seed=nn * 7 + 8192)
+    rows, ok = [], True
+    for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        for N, nn in FORWARD_CASES:
+            x = edge_inputs(N, nn, dt, dev, seed=nn * 7 + N)
             a, b = other.edge_attention_kernel(*x), ea.edge_attention_kernel(*x)
             torch.cuda.synchronize()
             bits = all(torch.equal(p, q) for p, q in zip(a, b))
-            same &= bits
+            plain = ea.edge_attention_plain(*x)
+            err = {"other": excess(a, plain, tol), "this": excess(b, plain, tol)}
+            del a, b, plain
+            ok &= all(e <= 0 for e in err.values()) if tolerance else bits
             t = [cuda_time_ms(lambda k=k: k.edge_attention_kernel(*x), reps=reps)
                  for k in (other, ea, ea, other)]
-            rows.append({"dtype": str(dt)[6:], "nn": nn, "bits_equal": bits,
+            rows.append({"dtype": str(dt)[6:], "N": N, "nn": nn, "bits_equal": bits, "tol": tol,
+                         "other_excess": err["other"], "this_excess": err["this"],
                          "other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]]})
-            print(f"edge N=8192 nn={nn} {str(dt)[6:]}: bits {'equal' if bits else 'DIFFER'}; "
-                  f"other {t[0]:.4f}, {t[3]:.4f} ms; this {t[1]:.4f}, {t[2]:.4f} ms", flush=True)
-    return rows, same
+            print(f"edge N={N} nn={nn} {str(dt)[6:]}: bits {'equal' if bits else 'differ'}; beyond "
+                  f"tolerance of the plain version by other {err['other']:.3g}, this {err['this']:.3g} "
+                  f"(<= 0 within); other {t[0]:.4f}, {t[3]:.4f} ms; this {t[1]:.4f}, {t[2]:.4f} ms; "
+                  f"x{(t[0] + t[3]) / (t[1] + t[2]):.3f}", flush=True)
+    return rows, ok
 
 
 def backward_ab(other, ea, dev, reps):
@@ -116,6 +143,8 @@ def main(argv=None):
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--other", required=True, help="another checkout of the repository")
     parser.add_argument("--backward", action="store_true", help="the backward kernels, not the forward ones")
+    parser.add_argument("--tolerance", action="store_true",
+                        help="forward: hold both kernels to phase 3's tolerance, not to each other's bits")
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args(argv)
 
@@ -132,7 +161,10 @@ def main(argv=None):
             print(f"this edge_attention_bwd ptxas: {line}", flush=True)
         rows, ok = backward_ab(other, ea, dev, args.reps)
     else:
-        rows, ok = forward_ab(other, ea, dev, args.reps)
+        _build.build_all(("edge_attention",))
+        for line in ptxas_report(_build.build_logs.get("edge_attention", "")):
+            print(f"this edge_attention ptxas: {line}", flush=True)
+        rows, ok = forward_ab(other, ea, dev, args.reps, args.tolerance)
     print(json.dumps({"device": card_line(), "mode": "backward" if args.backward else "forward", "cases": rows}),
           flush=True)
     return 0 if ok else 1

@@ -9,9 +9,10 @@ vector softmax, the value sums). The Hopper kernel takes atom-major states
 itself; the TPU kernel's nn-major input and lane-aligned K2 packing were
 shaped for TPU tiles and are not carried over. The kernel runs the three
 edge-MLP products on the tensor cores (bf16 operands in bf16 mode, 3xTF32
-in fp32 mode) and lays out its weights itself, in shared memory, once per
-block. The source note in the .cu file says what bounds the kernel and how
-it is laid out.
+on warpgroup MMA in fp32 mode) and lays out its weights itself: bf16 in
+shared memory once per block, fp32 split into TF32 hi and lo once per
+launch, into scratch after the per-atom terms. The source note in the .cu
+file says what bounds the kernel and how it is laid out.
 
 Weights are the packed tensors of `pesto_tpu/models/pesto.py:233-275`:
 K0 [6S+1, 4S] (the three first layers side by side), B0 [4S], K1 [4S, 4S]
@@ -320,6 +321,9 @@ def _edge_attention_op_fake(qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, S, Nh, Nk
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# floats of the fp32 weights split into TF32 hi and lo (csrc/edge_attention.cu
+# wg::SPLIT_FLOATS), which the fp32 kernel writes after the per-atom terms
+_SPLIT_FLOATS = 55296
 _EDGE = _build.Entry("edge_attention", "edge_attention", "i" + "p" * 14 + "iiii")
 _NAMES = ("qp", "d", "r", "nq", "K0", "B0", "K1", "B1", "K2", "B2")
 
@@ -372,7 +376,9 @@ def edge_attention_kernel(qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, S=32, Nh=2,
     N, nn, n_table = _check("edge kernel", qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, S, Nh, Nk, row0)
     zq = qp.new_empty((N, Nh * S))
     zp = qp.new_empty((N, 3 * Nh * S))
-    per_atom = qp.new_empty((N, 4 * S), dtype=torch.float32)  # scratch
+    # scratch: the per-atom terms and, in fp32, the split weights
+    per_atom = qp.new_empty(N * 4 * S + (_SPLIT_FLOATS if qp.dtype == torch.float32 else 0),
+                            dtype=torch.float32)
     _EDGE(_DTYPES[qp.dtype], qp, ids, d, r, nq, K0, B0, K1, B1, K2, B2, zq, zp, per_atom,
           N, nn, row0, n_table)
     _build.count_launch(edge_attention_kernel)
