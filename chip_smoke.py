@@ -40,7 +40,18 @@ not beside this file). Phases, each of which fails the run on error:
      backward's own error against the fp32 backward of the same inputs;
      at N=8192, nn=64 its time (CUDA events), device time by kernel, the
      host's us per call, the plain recompute and gradient's time, TFLOP/s
-     and bounds; its ptxas line;
+     and bounds; its ptxas line. Then the cross-attention kernel
+     (csrc/cross_attention.cu) against its plain version at 1000 x 1000,
+     8192 x 8192 and 32767 x 2000 atoms and a chunk of 4 unequal pairs,
+     laid out as the dimer's batched forward lays them, with garbage in
+     the rows no segment holds: fp32 max |kernel - plain| at most 1e-5 of
+     the plain output's largest value, those rows zero; its time in turns
+     against the plain version's, the einsum path's (the [n * cNh, m]
+     logits the layer made before) and, for one pair, torch's
+     scaled_dot_product_attention's (each direction's queries viewed as
+     n * cNh rows against the partner's keys and values), the extra memory
+     each takes, its bound (3xTF32 on the tensor cores, as the edge rows,
+     and fp32 on the CUDA cores beside it) and its ptxas line;
   4. the main path at full width: Predictor(i_v4_1, 32 layers, seeded random
      weights, device="cuda").predict_pdb_file on tests/goldens/1OL5_A_i0.pdb
      and on a synthetic 8191-atom structure (bucket 8192), with the launch
@@ -160,11 +171,23 @@ not beside this file). Phases, each of which fails the run on error:
      against CPU at atol 1e-4, both with i_v4_0 (16 layers of the same
      width: the CPU's plain 32-layer forward would take most of the
      phase); the cross model (CrossPestoModel at i_v4_1 width) on
-     the complex's chains A and B, forward and backward by CUDA events
-     (median of 3), 64 edge launches per forward and 64 edge backward
-     launches per backward, a finite gradient on every
+     the complex's chains A and B, through its one-pair call (64 edge and
+     32 cross-attention launches per forward, 64 edge backward launches
+     per backward) and through its batched path (each chain a batch of
+     one, both chains' rows in one table: 32, 32 and 32), each forward and
+     backward by CUDA events (median of 3), a finite gradient on every
      parameter, and on a 2 x 1000-atom pair its logits against the CPU's at
-     atol 1e-4 and each gradient at a relative L2 error of 1e-3; the traj/
+     atol 1e-4 and each gradient at a relative L2 error of 1e-3; the
+     dimer's main path, Predictor.predict_pairs with those weights, on six
+     unequal pairs of 600-4200 atoms over four bucket keys, spans recorded
+     and the launch counters set to 0 just before: each chunk's launch
+     span reads 2 kNN, 32 edge and 32 cross-attention launches, the
+     kernel at each chunk's first layer within 1e-5 of its plain version
+     on the same inputs with the rows outside the segments zero, and the
+     probabilities against a CPU Predictor's at atol 1e-4, the CPU given
+     the card's kNN ids (a near tie of two distances falls either way, and
+     the cross attention spreads one atom's other neighbour over its
+     partner's answers); the traj/
      toolkit (superpose, rmsd, contacts_per_frame, fnat, irmsd,
      contacts_distribution) on the 64 frames with the structure's two
      halves as subunits, its ms per call, and on the first 8 frames card
@@ -248,7 +271,8 @@ not beside this file). Phases, each of which fails the run on error:
      with the launch counters set to 0 just before and read just after.
 
 The kernels line gives the launches of the inference path (phase 4) and of
-the scripts (phase 5), for the edge backward kernel those of phase 6's
+the scripts (phase 5), for the cross-attention kernel those of phase 9's
+predict_pairs call, for the edge backward kernel those of phase 6's
 fp32 train steps and, per phase, of every training path (6, 9, 10), and for the two main-path kernels those of phase
 10's and phase 11's paths (`launches_phase10`, among them the DP x SP
 steps' and the batched 2-D forward's, `launches_phase11`);
@@ -263,6 +287,7 @@ and {"ok": true, "device": {...}}.
 
 import hashlib
 import json
+import math
 import re
 import os
 import subprocess
@@ -629,6 +654,143 @@ def phase_edge(dev):
                              f"{extra}")
                 log(line)
     return worst, timing
+
+
+CROSS_REL_TOL = 1e-5  # fp32: max |kernel - plain| over max |plain|, sums in another order
+# (query atoms of side A, of side B) per pair of each case; one row a pair
+CROSS_CASES = (("1000x1000", (1000,), (1000,)), ("8192x8192", (8191,), (8191,)),
+               ("32767x2000", (32767,), (2000,)),
+               ("chunk B=4", (3000, 1200, 7000, 500), (2500, 4000, 800, 60)))
+
+
+def cross_case(na_list, nb_list, dev, seed):
+    """Inputs of the cross-attention op for pairs of the given real atoms,
+    laid out as the dimer's batched forward lays them (side A's padded
+    blocks, then side B's, a sink row first in each), with garbage of 1e4
+    in every row no segment holds: (Q, K, V, (offsets, counts, partner)
+    as lists, the same as int32 tensors, max_rows, the mask of real rows)."""
+    import torch
+
+    B, NA, NB = len(na_list), max(na_list) + 1, max(nb_list) + 1
+    N = B * (NA + NB)
+    offsets = [b * NA + 1 for b in range(B)] + [B * NA + b * NB + 1 for b in range(B)]
+    counts = list(na_list) + list(nb_list)
+    partner = [B + b for b in range(B)] + list(range(B))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Q = torch.randn(N, 2, 3, generator=g, device=dev) * 1.5
+    K = torch.randn(N, 3, generator=g, device=dev) * 1.5
+    V = torch.randn(N, 32, generator=g, device=dev)
+    real = torch.zeros(N, dtype=torch.bool, device=dev)
+    for o, c in zip(offsets, counts):
+        real[o : o + c] = True
+    for x in (Q, K, V):
+        x[~real] = 1e4
+    lists = (offsets, counts, partner)
+    tensors = tuple(torch.tensor(x, dtype=torch.int32, device=dev) for x in lists)
+    return Q, K, V, lists, tensors, max(NA, NB) - 1, real
+
+
+def einsum_path(Q, K, V, lists, na_list, nb_list):
+    """The cross attention as the layer computed it before the kernel: per
+    direction of each pair the [n * cNh, m] logits over the partner's
+    padded block with a -1e6 bias on its padding, a softmax and the value
+    einsum (one pair at a time: unequal pairs are no one einsum)."""
+    import torch
+
+    offsets, counts, partner = lists
+    B, NA, NB = len(na_list), max(na_list) + 1, max(nb_list) + 1
+    blocks = [(b * NA, (b + 1) * NA) for b in range(B)] + [(B * NA + b * NB, B * NA + (b + 1) * NB) for b in range(B)]
+    out = Q.new_zeros((Q.shape[0], 64))
+    for s, t in enumerate(partner):
+        (q0, q1), (k0, k1) = blocks[s], blocks[t]
+        bias = torch.full((k1 - k0,), -1e6, device=Q.device)
+        bias[offsets[t] - k0 : offsets[t] - k0 + counts[t]] = 0.0
+        w = torch.softmax(torch.einsum("nhk,mk->nhm", Q[q0:q1], K[k0:k1] / math.sqrt(3)) + bias, dim=2)
+        out[q0:q1] = torch.einsum("nhm,ms->nhs", w, V[k0:k1]).reshape(q1 - q0, -1)
+    return out
+
+
+def sdpa_path(Q, K, V, lists):
+    """The cross attention through torch's scaled_dot_product_attention,
+    one call per direction of a pair: segment s's Q rows [n, cNh, cNk]
+    viewed as [1, 1, n * cNh, cNk] queries against its partner's K [m,
+    cNk] and V [m, S], the default scale 1 / sqrt(cNk); rows outside every
+    segment zero. The library picks its backend."""
+    import torch
+    import torch.nn.functional as F
+
+    offsets, counts, partner = lists
+    out = Q.new_zeros((Q.shape[0], Q.shape[1] * V.shape[1]))
+    for o, c, t in zip(offsets, counts, partner):
+        k0, m = offsets[t], counts[t]
+        y = F.scaled_dot_product_attention(Q[o : o + c].reshape(1, 1, -1, Q.shape[2]), K[None, None, k0 : k0 + m],
+                                           V[None, None, k0 : k0 + m])
+        out[o : o + c] = y.reshape(c, -1)
+    return out
+
+
+def phase_cross(dev):
+    """The cross-attention kernel against its plain version at
+    CROSS_CASES: its error relative to the plain output's largest value,
+    the rows no segment holds zero, its time in turns against the plain
+    version's, the einsum path's and (one pair) torch's
+    scaled_dot_product_attention's, the extra memory each takes, and its
+    bound (3xTF32 on the tensor cores, as the edge rows; fp32 on the CUDA
+    cores beside it). Returns {case: numbers}."""
+    import torch
+
+    from pesto_tpu_torch.ops import _build
+    from pesto_tpu_torch.ops import cross_attention as ca
+
+    for line in _build.build_logs.get("cross_attention", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"cross_attention ptxas: {line.strip()}")
+    out = {}
+    for k, (name, na_list, nb_list) in enumerate(CROSS_CASES):
+        Q, K, V, lists, segs, max_rows, real = cross_case(na_list, nb_list, dev, seed=31 + k)
+        got = ca.cross_attention_kernel(Q, K, V, *segs, max_rows)
+        torch.cuda.synchronize()
+        plain = ca.cross_attention_plain(Q, K, V, *lists)
+        rel = float((got - plain).abs().max() / plain.abs().max())
+        if not rel <= CROSS_REL_TOL or not bool((got[~real] == 0).all()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"cross attention {name}: relative error {rel}, or a row outside the segments "
+                                 "not zero, or not finite")
+        kernel = lambda: ca.cross_attention_kernel(Q, K, V, *segs, max_rows)  # noqa: E731
+        paths = {"kernel": kernel, "plain": lambda: ca.cross_attention_plain(Q, K, V, *lists)}
+        sdpa_err = None
+        if len(na_list) == 1:
+            paths["einsum"] = lambda: einsum_path(Q, K, V, lists, na_list, nb_list)
+            paths["sdpa"] = lambda: sdpa_path(Q, K, V, lists)
+            sdpa_err = float((paths["sdpa"]() - plain).abs().max() / plain.abs().max())
+        ms = {p: [] for p in paths}
+        for _ in range(2):  # in turns
+            for p, fn in paths.items():
+                ms[p].append(cuda_time_ms(fn, reps=10 if p == "kernel" else 3, warmup=1))
+        extra_mb = {}
+        for p, fn in paths.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            extra_mb[p] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        flops = sum(4 * a * b * 2 * (3 + 32) for a, b in zip(na_list, nb_list))
+        nbytes = sum(a + b for a, b in zip(na_list, nb_list)) * (6 + 3 + 32 + 64) * 4
+        cores = bound(flops, nbytes, PEAK_FP32_FLOPS)
+        best = {p: min(v) for p, v in ms.items()}
+        out[name] = {"rel_err": rel, "ms": best["kernel"], "plain_ms": best["plain"],
+                     "einsum_ms": best.get("einsum"), "sdpa_ms": best.get("sdpa"), "sdpa_rel_err": sdpa_err,
+                     "turns_ms": ms, "extra_mb": extra_mb, **bound(3 * flops, nbytes, PEAK_TF32_FLOPS),
+                     "cores_bound_ms": cores["bound_ms"]}
+        log(f"cross attention {name}: relative error {rel:.3g} (tol {CROSS_REL_TOL}); kernel "
+            f"{best['kernel']:.4f} ms, plain {best['plain']:.3f} ms"
+            + (f", einsum path {best['einsum']:.3f} ms, scaled_dot_product_attention {best['sdpa']:.3f} ms "
+               f"(relative error {sdpa_err:.3g})" if "einsum" in ms else "")
+            + f" (turns {json.dumps(ms)}); extra MB {json.dumps(extra_mb)}; bound "
+            f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']}, 3xTF32 on the tensor cores), CUDA-core "
+            f"bound {cores['bound_ms']:.4f} ms ({cores['bound_by']})")
+    return out
 
 
 EDGE_BWD_RTOL = 1e-4  # fp32: per gradient tensor, relative L2, floored as TRAIN_GRAD_RTOL's formula
@@ -2344,6 +2506,148 @@ SASA_CPU_ATOMS = 1000  # atoms of the 1OL5 crop of the SASA card-vs-CPU check
 COORD_ATOL = 1e-4  # A: superposed coordinates, RMSD, iRMSD, card vs CPU
 
 
+PAIR_RECORDS = ((3000, 375), (1200, 150), (1500, 187), (700, 87), (600, 75), (4200, 525))  # atoms, residues
+PAIRS = ((0, 1), (2, 0), (3, 1), (2, 4), (5, 3), (3, 4))  # unequal pairs of PAIR_RECORDS, four bucket keys
+
+
+def pair_chunks(recs, pairs, atoms_per_call=32768):
+    """The chunks predict_pairs makes of pairs (indices into recs): each
+    pair keyed by its larger side's bucket, then its smaller side's, and
+    one chunk per `atoms_per_call // the larger na of the key` pairs of a
+    key. Returns (chunks, {key: pairs})."""
+    import collections
+
+    groups = collections.Counter()
+    for i, j in pairs:
+        big, small = sorted((recs[i], recs[j]), key=lambda r: -len(r["xyz"]))
+        groups[bucket_of(big) + bucket_of(small)] += 1
+    return (sum(-(-n // max(1, atoms_per_call // max(k[0], k[2]))) for k, n in groups.items()),
+            {"x".join(map(str, k)): n for k, n in groups.items()})
+
+
+def check_predict_pairs(cfg, state_dict, dev):
+    """The dimer's main path at full width: Predictor.predict_pairs on
+    PAIRS, unequal pairs over four bucket keys. With the launch counters
+    set to 0 just before and spans recorded, each chunk's `.launch` span
+    must read 2 kNN, one edge and one cross-attention launch a layer, and
+    the counters their sums; the cross-attention kernel's output at each
+    chunk's first layer against its plain version on the same inputs
+    (CROSS_REL_TOL, rows outside the segments zero); the probabilities
+    against a CPU Predictor's at PROB_ATOL, the CPU given the card's kNN
+    ids as phase 9's cross check gives both the same ids (a near tie of two
+    distances falls either way, and the cross attention spreads one atom's
+    other neighbour over its partner's answers; the rows whose ids differ
+    from the CPU's own kNN are counted); the host ms of a warm call.
+    Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from pesto_tpu_torch import infer
+    from pesto_tpu_torch.infer import Predictor
+    from pesto_tpu_torch.models import extras
+    from pesto_tpu_torch.ops import cross_attention as ca
+    from pesto_tpu_torch.synthetic import random_structure_record
+    from pesto_tpu_torch.utils import tracing
+
+    n_layers = len(cfg.layers)
+    recs = [random_structure_record(n_atoms=n, n_res=r, seed=400 + k) for k, (n, r) in enumerate(PAIR_RECORDS)]
+    pairs = [(recs[i], recs[j]) for i, j in PAIRS]
+    n_chunks, keys = pair_chunks(recs, PAIRS)
+    pred = Predictor(cfg, state_dict, device=dev)
+    pred.predict_pairs(pairs)  # warm
+
+    op, knn_ids, firsts, calls, card_ids = extras.cross_attention, infer.knn_ids, [], [0], []
+
+    def capture(*args):
+        """The op, its inputs and output kept at each chunk's first layer."""
+        out = op(*args)
+        if calls[0] % n_layers == 0:
+            firsts.append((tuple(a.clone() if torch.is_tensor(a) else a for a in args), out.clone()))
+        calls[0] += 1
+        return out
+
+    def capture_ids(X, am):
+        """The card's kNN, its output kept in call order."""
+        out = knn_ids(X, am)
+        card_ids.append((tuple(t.cpu() for t in out), am.cpu().bool()))
+        return out
+
+    reset_launches()
+    ca.cross_attention_kernel.launches = 0
+    tracing.take()
+    extras.cross_attention, infer.knn_ids = capture, capture_ids
+    try:
+        with tracing.record():
+            got = pred.predict_pairs(pairs)
+        torch.cuda.synchronize()
+    finally:
+        extras.cross_attention, infer.knn_ids = op, knn_ids
+    launches = dict(read_launches(), cross=ca.cross_attention_kernel.launches)
+    spans = [s.attrs for s in tracing.take().spans if s.name == "predict_pairs.launch"]
+    per_chunk = [[s.get(k) for k in ("knn_launches", "edge_launches", "cross_launches")] for s in spans]
+    want = {"knn": 2 * n_chunks, "edge": n_layers * n_chunks, "cross": n_layers * n_chunks}
+    log(f"predict_pairs on {len(pairs)} pairs ({sum(len(r['xyz']) for p in pairs for r in p)} atoms), bucket "
+        f"keys {keys}: {len(spans)} chunks (expect {n_chunks}), launches {launches} (expect {want}), per "
+        f"chunk [knn, edge, cross] {per_chunk} (expect [2, {n_layers}, {n_layers}] each)")
+    if len(spans) != n_chunks or launches != want or any(c != [2, n_layers, n_layers] for c in per_chunk):
+        raise AssertionError(f"predict_pairs: {len(spans)} chunks, launches {launches}, per chunk {per_chunk}")
+
+    kernel_err, rows = 0.0, []
+    for (Q, K, V, offsets, counts, partner, max_rows), out in firsts:
+        plain = ca.cross_attention_plain(Q, K, V, offsets, counts, partner)
+        real = torch.zeros(Q.shape[0], dtype=torch.bool, device=Q.device)
+        for o, c in zip(offsets.tolist(), counts.tolist()):
+            real[o : o + c] = True
+        rel = float((out - plain).abs().max() / plain.abs().max())
+        if not rel <= CROSS_REL_TOL or not bool((out[~real] == 0).all()):
+            raise AssertionError(f"predict_pairs cross attention on a chunk ({Q.shape[0]} rows, "
+                                 f"{offsets.shape[0]} segments): relative error {rel}, or a row outside the "
+                                 "segments not zero")
+        kernel_err = max(kernel_err, rel)
+        rows.append([int(Q.shape[0]), int(offsets.shape[0])])
+    log(f"predict_pairs cross attention at each chunk's first layer ([rows, segments] {rows}) against its plain "
+        f"version: relative error {kernel_err:.3g} (tol {CROSS_REL_TOL}); rows outside the segments zero")
+    if len(firsts) != n_chunks:
+        raise AssertionError(f"predict_pairs: {len(firsts)} chunks' cross attention captured, {n_chunks} chunks")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred.predict_pairs(pairs)
+    torch.cuda.synchronize()
+    call_ms = 1e3 * (time.perf_counter() - t0)
+
+    given, other_rows = iter(card_ids), [0]
+
+    def card_knn(X, am):
+        """The card's kNN of this side (the CPU's call order is the card's),
+        the rows whose ids differ from the CPU's own counted."""
+        (ids, ok), real = next(given)
+        other_rows[0] += int(((ids != knn_ids(X, am)[0]).any(-1) & real).sum())
+        return ids, ok
+
+    t0 = time.perf_counter()
+    infer.knn_ids = card_knn
+    try:
+        want_p = Predictor(cfg, state_dict, device="cpu").predict_pairs(pairs)
+    finally:
+        infer.knn_ids = knn_ids
+    cpu_s = time.perf_counter() - t0
+    err = 0.0
+    for (a, b), (wa, wb) in zip(got, want_p):
+        for x, y in ((a, wa), (b, wb)):
+            if x.shape != y.shape:
+                raise AssertionError(f"predict_pairs shapes {x.shape} on the card, {y.shape} on the CPU")
+            err = max(err, float(np.abs(x - y).max()))
+    log(f"predict_pairs card vs CPU (the card's kNN ids; {other_rows[0]} real rows of {len(card_ids)} sides "
+        f"with other ids than the CPU's kNN): probabilities max abs diff {err:.3g} (atol {PROB_ATOL}), in "
+        f"order; warm call {call_ms:.1f} ms on the card, {cpu_s:.1f} s on the CPU")
+    if not err <= PROB_ATOL:
+        raise AssertionError(f"predict_pairs card vs CPU differ by {err}")
+    return {"pairs": len(pairs), "chunks": n_chunks, "keys": keys, "launches": launches, "per_chunk": per_chunk,
+            "kernel_rel_err": kernel_err, "chunk_rows": rows, "prob_err": err, "knn_other_rows": other_rows[0],
+            "call_ms": call_ms, "cpu_s": cpu_s}
+
+
 def random_walk(xyz, T, step, seed):
     """T frames from xyz (frame 0 exactly xyz): every atom takes a seeded
     Gaussian step of rms `step` A per frame."""
@@ -2389,6 +2693,7 @@ def phase_traj(dev, tmp):
     from pesto_tpu_torch.infer import Predictor
     from pesto_tpu_torch.io import read_pdb, read_structure, save_traj_pdb
     from pesto_tpu_torch.models import CrossPestoModel, get_config
+    from pesto_tpu_torch.ops.cross_attention import cross_attention_kernel
     from pesto_tpu_torch.ops.edge_attention import edge_attention_backward_kernel
     from pesto_tpu_torch.port import init_state_dict
     from pesto_tpu_torch.structure import (clean_structure, concatenate_chains, preprocess_structure,
@@ -2538,14 +2843,17 @@ def phase_traj(dev, tmp):
         # the cross model at full width on the complex's two chains
         subunits = split_by_chain(tag_hetatm_chains(clean_structure(structure)))
 
-        def cross_inputs(s, device):
+        def cross_inputs(s, device, batched):
+            """One chain: [NA, ...] for the one-pair call, or a batch of one
+            ([1, NA, ...]) for the batched path, both chains' rows in one
+            table."""
             ps = encode_and_pad(s, feature_flags=cfg.feature_flags, device=device)
-            return tuple(torch.as_tensor(x).to(device) for x in (ps.X, ps.ids_topk, ps.q, ps.M, ps.atom_mask))
+            return tuple(torch.as_tensor(x).to(device)[None] if batched else torch.as_tensor(x).to(device)
+                         for x in (ps.X, ps.ids_topk, ps.q, ps.M, ps.atom_mask))
 
         torch.manual_seed(0)
         cross_cpu = CrossPestoModel(cfg)
         cross = copy.deepcopy(cross_cpu).to(dev)
-        A, B = cross_inputs(subunits["A:0"], dev), cross_inputs(subunits["B:0"], dev)
 
         def fwd_bwd(model, A, B, timed):
             """sum(zA^2) + sum(zB^2) and its gradient: (forward ms, backward
@@ -2565,51 +2873,67 @@ def phase_traj(dev, tmp):
             torch.cuda.synchronize()
             return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]), zA, zB
 
-        fwd_bwd(cross, A, B, True)  # warm
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        edge_attention_backward_kernel.launches = 0
-        runs = [fwd_bwd(cross, A, B, True) for _ in range(CROSS_RUNS)]
-        cross_launches = read_launches()
-        cross_bwd = edge_attention_backward_kernel.launches
-        cross_peak = torch.cuda.max_memory_allocated() / 2**30
-        want = {"knn": 0, "edge": 2 * n_layers * CROSS_RUNS}
-        if cross_launches != want or cross_bwd != 2 * n_layers * CROSS_RUNS:
-            raise AssertionError(f"cross launches {cross_launches}, backward {cross_bwd}, expected {want} and "
-                                 f"{2 * n_layers * CROSS_RUNS} backward (2 per layer per forward and backward)")
-        for k, prm in cross.named_parameters():
-            if prm.grad is None or not torch.isfinite(prm.grad).all():
-                raise AssertionError(f"cross {k}.grad is {'None' if prm.grad is None else 'not finite'}")
-        zA, zB = runs[-1][2:]
-        if not (torch.isfinite(zA).all() and torch.isfinite(zB).all()):
-            raise AssertionError("cross logits not finite")
-        fwd_ms = statistics.median(r[0] for r in runs)
-        bwd_ms = statistics.median(r[1] for r in runs)
-        log(f"cross i_v4_1 on chains A, B ({int(A[4].sum())} + {int(B[4].sum())} atoms, buckets "
-            f"{A[0].shape[0]}, {B[0].shape[0]}): edge launches {cross_launches['edge']} in {CROSS_RUNS} "
-            f"forwards ({2 * n_layers} each), edge backward launches {cross_bwd} in {CROSS_RUNS} backwards "
-            f"({2 * n_layers} each); forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms (median "
-            f"of {CROSS_RUNS}, CUDA events); peak memory {cross_peak:.2f} GiB; every gradient finite")
-        part_done("cross card")
-
-        # card vs CPU on a 2 x 1000-atom pair, the same ids on both
         small = [random_structure_record(n_atoms=CROSS_SMALL[0], n_res=CROSS_SMALL[1], seed=s) for s in (93, 94)]
-        A, B = (cross_inputs(s, dev) for s in small)
-        _, _, zA, zB = fwd_bwd(cross, A, B, False)
-        _, _, cA, cB = fwd_bwd(cross_cpu, *[tuple(t.cpu() for t in S) for S in (A, B)], False)
-        logit_err = max(float((zA.detach().cpu() - cA.detach()).abs().max()),
-                        float((zB.detach().cpu() - cB.detach()).abs().max()))
-        gerr = grad_errors(types.SimpleNamespace(model=cross), types.SimpleNamespace(model=cross_cpu))
-        worst = max(gerr, key=gerr.get)
-        log(f"cross on {CROSS_SMALL[0]}-atom pair, card vs CPU: logits max abs diff {logit_err:.3g} (atol "
-            f"{PROB_ATOL}); worst gradient {worst} rel L2 {gerr[worst]:.3g} (tol {TRAIN_GRAD_RTOL})")
-        if not logit_err <= PROB_ATOL or not gerr[worst] <= TRAIN_GRAD_RTOL:
-            raise AssertionError(f"cross card vs CPU: logits {logit_err}, gradient {worst} {gerr[worst]}")
-        res["cross"] = {"launches_per_forward": 2 * n_layers, "bwd_launches": cross_bwd, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+        # the one-pair call runs the edge attention once per chain (2 a layer,
+        # forward and backward), the batched path once over both chains'
+        # rows; both run one cross-attention launch a layer
+        for key, batched, edge_per_layer in (("cross_one_pair", False, 2), ("cross", True, 1)):
+            A, B = (cross_inputs(subunits[c], dev, batched) for c in ("A:0", "B:0"))
+            fwd_bwd(cross, A, B, True)  # warm
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            edge_attention_backward_kernel.launches = 0
+            cross_attention_kernel.launches = 0
+            runs = [fwd_bwd(cross, A, B, True) for _ in range(CROSS_RUNS)]
+            cross_launches = dict(read_launches(), cross=cross_attention_kernel.launches)
+            cross_bwd = edge_attention_backward_kernel.launches
+            cross_peak = torch.cuda.max_memory_allocated() / 2**30
+            n_edge = edge_per_layer * n_layers
+            want = {"knn": 0, "edge": n_edge * CROSS_RUNS, "cross": n_layers * CROSS_RUNS}
+            if cross_launches != want or cross_bwd != n_edge * CROSS_RUNS:
+                raise AssertionError(f"{key} launches {cross_launches}, backward {cross_bwd}, expected {want} and "
+                                     f"{n_edge * CROSS_RUNS} backward ({edge_per_layer} edge a layer forward and "
+                                     "backward, 1 cross attention a layer)")
+            for k, prm in cross.named_parameters():
+                if prm.grad is None or not torch.isfinite(prm.grad).all():
+                    raise AssertionError(f"{key} {k}.grad is {'None' if prm.grad is None else 'not finite'}")
+            zA, zB = runs[-1][2:]
+            if not (torch.isfinite(zA).all() and torch.isfinite(zB).all()):
+                raise AssertionError(f"{key} logits not finite")
+            fwd_ms = statistics.median(r[0] for r in runs)
+            bwd_ms = statistics.median(r[1] for r in runs)
+            na = [int(A[4].sum()), int(B[4].sum())]
+            log(f"{key} i_v4_1 on chains A, B ({na[0]} + {na[1]} atoms, buckets {A[0].shape[-2]}, "
+                f"{B[0].shape[-2]}): edge launches {cross_launches['edge']} and cross-attention launches "
+                f"{cross_launches['cross']} in {CROSS_RUNS} forwards ({n_edge} and {n_layers} each), edge "
+                f"backward launches {cross_bwd} in {CROSS_RUNS} backwards ({n_edge} each); forward {fwd_ms:.2f} "
+                f"ms, backward {bwd_ms:.2f} ms (median of {CROSS_RUNS}, CUDA events); peak memory "
+                f"{cross_peak:.2f} GiB; every gradient finite")
+            part_done(f"{key} card")
+
+            # card vs CPU on a 2 x 1000-atom pair, the same ids on both
+            A, B = (cross_inputs(s, dev, batched) for s in small)
+            _, _, zA, zB = fwd_bwd(cross, A, B, False)
+            _, _, cA, cB = fwd_bwd(cross_cpu, *[tuple(t.cpu() for t in S) for S in (A, B)], False)
+            logit_err = max(float((zA.detach().cpu() - cA.detach()).abs().max()),
+                            float((zB.detach().cpu() - cB.detach()).abs().max()))
+            gerr = grad_errors(types.SimpleNamespace(model=cross), types.SimpleNamespace(model=cross_cpu))
+            worst = max(gerr, key=gerr.get)
+            log(f"{key} on {CROSS_SMALL[0]}-atom pair, card vs CPU: logits max abs diff {logit_err:.3g} (atol "
+                f"{PROB_ATOL}); worst gradient {worst} rel L2 {gerr[worst]:.3g} (tol {TRAIN_GRAD_RTOL})")
+            if not logit_err <= PROB_ATOL or not gerr[worst] <= TRAIN_GRAD_RTOL:
+                raise AssertionError(f"{key} card vs CPU: logits {logit_err}, gradient {worst} {gerr[worst]}")
+            res[key] = {"launches_per_forward": n_edge, "bwd_launches": cross_bwd,
+                        "cross_launches": cross_launches["cross"], "forward_ms": fwd_ms, "backward_ms": bwd_ms,
                         "runs_ms": [r[:2] for r in runs], "peak_gib": cross_peak, "logit_err": logit_err,
-                        "grad_rel_l2": gerr[worst], "atoms": [int(A[4].sum()), int(B[4].sum())]}
+                        "grad_rel_l2": gerr[worst], "atoms": na}
+            part_done(f"{key} card vs CPU")
+
+        # the dimer's main path, Predictor.predict_pairs, with the same weights
+        sd_cross = {k: v.detach().clone() for k, v in cross_cpu.state_dict().items()}
         del cross, cross_cpu
-        part_done("cross card vs CPU")
+        res["pairs"] = check_predict_pairs(cfg, sd_cross, dev)
+        part_done("predict_pairs")
 
         # the traj/ toolkit on the 64-frame trajectory, two halves as subunits
         h = n_atoms // 2
@@ -3669,7 +3993,7 @@ def main():
     card = card_line()
     log(f"card: {card}")
 
-    log(f"build: {_build.build_all():.1f} s (all five sources, nvcc in parallel)")
+    log(f"build: {_build.build_all():.1f} s (all six sources, nvcc in parallel)")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -3686,6 +4010,7 @@ def main():
     knn_dev, knn_t = phase_knn(dev)
     edge_err, edge_t = phase_edge(dev)
     bwd_err, bwd_abs, bwd_t = phase_edge_bwd(dev)
+    cross_t = phase_cross(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches, prob_err, e2e = phase_main(dev, tmp)
     log(f"1OL5 GPU-vs-CPU probability deviation {prob_err:.3g}")
@@ -3779,12 +4104,30 @@ def main():
             **{f"phase10 sp_train {n} {dtype}": sum(r[dtype]["bwd_launches_per_step"])
                for n, r in parallel["sp_train"].items() for dtype in ("float32", "bfloat16")}},
     })
+    c8 = cross_t["8192x8192"]
+    kernels.append({
+        "name": "cross_attention", "route": "cuda", "source": "pesto_tpu_torch/csrc/cross_attention.cu",
+        "replaces": "none: the dimer's cross attention was plain torch einsums (pesto_tpu/models/extras.py "
+                    "in the JAX package)",
+        # phase 9's predict_pairs call, the dimer's main path (32 a chunk)
+        "launches": trajectories["pairs"]["launches"]["cross"],
+        "max_rel_err": max(c["rel_err"] for c in cross_t.values()), "ms": c8["ms"], "plain_ms": c8["plain_ms"],
+        "einsum_ms": c8["einsum_ms"], "bound_ms": c8["bound_ms"], "bound_by": c8["bound_by"],
+        "cores_bound_ms": c8["cores_bound_ms"], "library_ms": c8["sdpa_ms"],
+        "library": "scaled_dot_product_attention",
+        "ptxas": ptxas_report(_build.build_logs.get("cross_attention", "")),
+        "cases": {n: {k: c[k] for k in ("rel_err", "ms", "plain_ms", "einsum_ms", "sdpa_ms", "bound_ms")}
+                  for n, c in cross_t.items()},
+    })
     kernels += [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": script_launches[name], **off_path[name]}
         for name, (source, replaces) in OFF_PATH.items()
     ]
-    log("kernel shapes: knn_top64 at the 8191-atom structure (NA=8192), the ids-only entry "
+    log("kernel shapes: cross_attention fp32 at 8192 x 8192 atoms (bound: 3xTF32 on the tensor cores, the "
+        "CUDA-core bound beside it; library: scaled_dot_product_attention), its launches those of phase 9's "
+        "predict_pairs call; "
+        "knn_top64 at the 8191-atom structure (NA=8192), the ids-only entry "
         "of the main path, bound from the pairs it evaluated; "
         "edge_attention fp32 at N=8192, nn=64 (bound: 3xTF32 on the tensor cores); "
         "edge_attention_bwd fp32 at N=8192, nn=64 (bound: 3xTF32), its launches those of phase 6's fp32 "

@@ -9,7 +9,11 @@ server's path): records encode to compact codes in a thread pool, group by
 bucket into chunks under an atom budget, and each chunk runs the batched
 kNN (one launch), the forward over the flattened batch (one edge launch
 per layer) and the sigmoid, with up to `pipeline_depth` chunks in flight
-on the device while the host encodes the next one.
+on the device while the host encodes the next one. Pairs of structures
+(`predict_pairs`, a Predictor of the dimer model) take the same stages:
+each chunk holds pairs of one key of both sides' buckets, runs the kNN of
+each side and the dimer's forward over both sides' rows (one edge and one
+cross-attention launch per layer).
 
 Several devices, from this one process (`parallel.mesh.make_mesh`):
 `Predictor(mesh=)` serves data-parallel, each chunk split across the
@@ -18,6 +22,7 @@ mesh's data axis, each device running its part alone with no collective;
 sharded over the mesh's model axis (`parallel.sp`).
 """
 
+import contextlib
 import dataclasses
 import io
 import queue
@@ -35,7 +40,8 @@ from .batching import BatchEncoder, PaddedStructure, encode_and_pad, pick_bucket
 from .device import resolve_device
 from .encoding import encode_features, encode_structure, std_elements, std_names, std_resnames, vocab_codes
 from .io import read_structure
-from .models import PestoConfig, PestoModel
+from .models import CrossPestoModel, PestoConfig, PestoModel
+from .ops import cross_attention as _cross
 from .ops import edge_attention as _edge
 from .ops import knn as _knn
 from .ops.knn import knn_ids
@@ -50,7 +56,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 class Predictor:
     """A PestoModel with its weights on one device, or on each device of a
-    mesh.
+    mesh; or, given a dimer's state dict, a CrossPestoModel on one device,
+    which answers `predict_pairs`.
 
     device=None means the GPU, and raises where there is none; pass
     device="cpu" for the plain PyTorch versions of the kernels. With a
@@ -71,7 +78,12 @@ class Predictor:
             device = self._data_devices[0] if device is None else device
         self.device = resolve_device(device)
         self.cfg = cfg
-        model = PestoModel(cfg)
+        # a dimer's state dict (its layers are `csul.{i}`) makes a
+        # CrossPestoModel, which answers predict_pairs
+        self.dimer = any(k.startswith("csul.") for k in state_dict)
+        if self.dimer and mesh is not None:
+            raise ValueError("a dimer Predictor runs on one device, not over a mesh")
+        model = (CrossPestoModel if self.dimer else PestoModel)(cfg)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(device=self.device, dtype=_DTYPES[cfg.dtype]).eval()
         if mesh is not None:
@@ -289,6 +301,88 @@ class Predictor:
                         probs = self._knn_forward_sigmoid(batch.X, batch.q, batch.M, batch.atom_mask)
                     probs.cpu()
 
+    @contextlib.contextmanager
+    def _encoder(self, num_threads, need_sets):
+        """A BatchEncoder with at least `need_sets` buffer sets, checked out
+        of the idle pool (or made) for one call and put back after it."""
+        try:
+            enc = self._enc_pool.get_nowait()
+        except queue.Empty:
+            enc = None
+        if enc is not None and enc.n_sets < need_sets:
+            enc.close()
+            enc = None
+        if enc is None:
+            enc = BatchEncoder(num_threads, n_sets=need_sets)
+        try:
+            yield enc
+        finally:
+            try:
+                self._enc_pool.put_nowait(enc)
+            except queue.Full:
+                enc.close()
+
+    def _encode_records(self, call_name, records, num_threads, cid):
+        """The `<call_name>.record_encode` stage: each record to host arrays
+        in a thread pool (`_encode_record`), None and a line on stderr for
+        one that fails."""
+
+        def encode_record(arg):
+            i, s = arg
+            with tracing.span(f"{call_name}.encode_record", parent=record_stage, call=cid, structure=i):
+                try:
+                    return self._encode_record(s)
+                except Exception as e:  # noqa: BLE001 — one bad record gives None
+                    print(f"EncodeError: structure {i}: {type(e).__name__}: {e}", file=sys.stderr)
+                    return None
+
+        with tracing.span(f"{call_name}.record_encode", sums=self._stages, key="record_encode",
+                          call=cid) as record_stage:
+            with ThreadPoolExecutor(max(1, int(num_threads))) as pool:
+                recs = list(pool.map(encode_record, enumerate(records)))
+        self._stages.count("batch_calls")
+        return recs
+
+    @staticmethod
+    def _n_res(rec) -> int:
+        return rec[3] if len(rec) == 4 else rec[2].shape[1]
+
+    def _bucket(self, rec):
+        """(atom bucket, residue bucket) of an encoded record; ValueError
+        past the largest."""
+        return (pick_bucket(rec[0].shape[0] + 1, batching.ATOM_BUCKETS),
+                pick_bucket(max(self._n_res(rec), 1), batching.RES_BUCKETS))
+
+    @staticmethod
+    def _to_host(*probs):
+        """The probabilities copied to pinned host memory without waiting,
+        and the event after the copies: (host tensors, event), the event
+        None off a card."""
+        if not probs[0].is_cuda:
+            return probs, None
+        hosts = []
+        for t in probs:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            hosts.append(host)
+        ready = torch.cuda.Event()
+        ready.record()
+        return tuple(hosts), ready
+
+    @staticmethod
+    def _pipeline(chunks, submit, collect, pipeline_depth) -> None:
+        """submit(chunk) for each chunk in turn, with at most
+        `pipeline_depth` submitted chunks not yet collected; collect(chunk,
+        submit's result) in the same order."""
+        depth = max(1, int(pipeline_depth))
+        pending = deque()
+        for chunk in chunks:
+            pending.append((chunk, submit(chunk)))
+            if len(pending) > depth:
+                collect(*pending.popleft())
+        while pending:
+            collect(*pending.popleft())
+
     def predict_batch(self, structures: list, atoms_per_call: int = 32768,
                       num_threads: int = 8, pipeline_depth: int = 2) -> list:
         """Cleaned structure records -> list of [n_res_i, C] probabilities,
@@ -300,49 +394,20 @@ class Predictor:
         encodes the next one and reads back the oldest. While spans are
         recorded (`utils.tracing`), the call is a `predict_batch` span whose
         stages are its children, each with the call's id."""
+        if self.dimer:
+            raise TypeError("a dimer Predictor answers predict_pairs, not predict_batch")
         ndev = len(self._data_devices) if self.mesh is not None else 1
         need_sets = max(2, (int(pipeline_depth) + 1) * ndev)
-        try:
-            enc = self._enc_pool.get_nowait()
-        except queue.Empty:
-            enc = None
-        if enc is not None and enc.n_sets < need_sets:
-            enc.close()
-            enc = None
-        if enc is None:
-            enc = BatchEncoder(num_threads, n_sets=need_sets)
-        try:
-            # grad mode is per thread
-            with torch.no_grad(), tracing.span("predict_batch", structures=len(structures)) as call:
-                return self._predict_batch_impl(structures, atoms_per_call, num_threads,
-                                                pipeline_depth, call, enc)
-        finally:
-            try:
-                self._enc_pool.put_nowait(enc)
-            except queue.Full:
-                enc.close()
+        # grad mode is per thread
+        with self._encoder(num_threads, need_sets) as enc, torch.no_grad(), \
+                tracing.span("predict_batch", structures=len(structures)) as call:
+            return self._predict_batch_impl(structures, atoms_per_call, num_threads,
+                                            pipeline_depth, call, enc)
 
     def _predict_batch_impl(self, structures, atoms_per_call, num_threads, pipeline_depth, call, encoder):
         compact = self._compact_spec() is not None
         cid = call.span_id if call is not None else None
-
-        def encode_record(arg):
-            i, s = arg
-            with tracing.span("predict_batch.encode_record", parent=record_stage, call=cid, structure=i):
-                try:
-                    return self._encode_record(s)
-                except Exception as e:  # noqa: BLE001 — one bad record gives None
-                    print(f"EncodeError: structure {i}: {type(e).__name__}: {e}", file=sys.stderr)
-                    return None
-
-        with tracing.span("predict_batch.record_encode", sums=self._stages, key="record_encode",
-                          call=cid) as record_stage:
-            with ThreadPoolExecutor(max(1, int(num_threads))) as pool:
-                recs = list(pool.map(encode_record, enumerate(structures)))
-        self._stages.count("batch_calls")
-
-        def n_res(rec):
-            return rec[3] if compact else rec[2].shape[1]
+        recs = self._encode_records("predict_batch", structures, num_threads, cid)
 
         buckets = {}
         with tracing.span("predict_batch.plan", call=cid):
@@ -350,8 +415,7 @@ class Predictor:
                 if rec is None:
                     continue
                 try:
-                    key = (pick_bucket(rec[0].shape[0] + 1, batching.ATOM_BUCKETS),
-                           pick_bucket(max(n_res(rec), 1), batching.RES_BUCKETS))
+                    key = self._bucket(rec)
                 except ValueError as e:
                     print(f"SizeError: structure {i}: {e}", file=sys.stderr)
                     continue
@@ -382,20 +446,19 @@ class Predictor:
                 if sp is not None:
                     knn0, edge0 = _knn.knn_kernel.launches, _edge.edge_attention_kernel.launches
                 probs = self._knn_forward_sigmoid(b.X, b.q, b.M, b.atom_mask, nr=nr if compact else None)
-                host, ready = probs, None
-                if probs.is_cuda:
-                    host = torch.empty(probs.shape, dtype=probs.dtype, pin_memory=True)
-                    host.copy_(probs, non_blocking=True)
-                    ready = torch.cuda.Event()
-                    ready.record()
+                (host,), ready = self._to_host(probs)
                 if sp is not None:
                     sp.attrs.update(knn_launches=_knn.knn_kernel.launches - knn0,
                                     edge_launches=_edge.edge_attention_kernel.launches - edge0)
             return host, ready
 
-        def submit(dispatch, na, nr):
+        def submit(chunk):
             """One chunk, as len(devices) equal parts, each on its device
-            with no exchange between them."""
+            with no exchange between them. Over a mesh, a chunk is padded to
+            a multiple of the devices by repeating its first structure,
+            whose copies are never collected."""
+            group, na, nr = chunk
+            dispatch = group + [group[0]] * (-len(group) % ndev)
             per = len(dispatch) // len(devices)
             results = []
             for k, dev in enumerate(devices):
@@ -413,25 +476,130 @@ class Predictor:
                     if ready is not None:
                         ready.synchronize()
                 probs = np.concatenate([host.numpy() for host, _ in results])
-            for j, i in enumerate(chunk):
-                out[i] = probs[j, : n_res(recs[i])]
+            for j, i in enumerate(chunk[0]):
+                out[i] = probs[j, : self._n_res(recs[i])]
 
-        depth = max(1, int(pipeline_depth))
-        pending = deque()
+        chunks = []
         for (na, nr), group in buckets.items():
-            # an atom budget per device; over a mesh, a chunk is padded to a
-            # multiple of the devices by repeating its first structure,
-            # whose copies are never collected
+            # an atom budget per device
             bmax = max(ndev, atoms_per_call * ndev // na)
             bmax -= bmax % ndev
-            for k in range(0, len(group), bmax):
-                chunk = group[k : k + bmax]
-                dispatch = chunk + [chunk[0]] * (-len(chunk) % ndev)
-                pending.append((chunk, submit(dispatch, na, nr)))
-                if len(pending) > depth:
-                    collect(*pending.popleft())
-        while pending:
-            collect(*pending.popleft())
+            chunks += [(group[k : k + bmax], na, nr) for k in range(0, len(group), bmax)]
+        self._pipeline(chunks, submit, collect, pipeline_depth)
+        return out
+
+    @torch.no_grad()
+    def _pair_forward_sigmoid(self, ba, bb, nr_a=None, nr_b=None):
+        """One chunk of pairs on the device: the batched kNN of each side,
+        the dimer's forward over both sides' rows and an fp32 sigmoid.
+        Returns probabilities ([B, NRa, C], [B, NRb, C]) without a host
+        sync."""
+        ids_a, _ = knn_ids(ba.X, ba.atom_mask)
+        ids_b, _ = knn_ids(bb.X, bb.atom_mask)
+        za, zb = self.model((ba.X, ids_a, ba.q, ba.M, ba.atom_mask), (bb.X, ids_b, bb.q, bb.M, bb.atom_mask),
+                            nr_a=nr_a, nr_b=nr_b)
+        return torch.sigmoid(za.to(torch.float32)), torch.sigmoid(zb.to(torch.float32))
+
+    def predict_pairs(self, pairs: list, atoms_per_call: int = 32768, num_threads: int = 8,
+                      pipeline_depth: int = 2) -> list:
+        """Pairs of cleaned structure records [(a, b)] -> [(probs_a [n_res_a,
+        C], probs_b [n_res_b, C])], each side conditioned on the other, in
+        the caller's order; needs a dimer Predictor. The stages are
+        predict_batch's: each distinct record (by identity) of the call is
+        encoded once, in the thread pool; each pair is keyed by its sides'
+        (atom, residue) buckets, its larger side first (the answer mapped
+        back), and the pairs of a key go in chunks of at most
+        `atoms_per_call` padded atoms a side; a chunk's two sides go through
+        the BatchEncoder and the kNN kernel, the forward runs both sides'
+        rows as one table (one edge and one cross-attention launch a
+        layer), and up to `pipeline_depth` chunks stay in flight. A pair
+        with a record that cannot be encoded or is over the largest bucket
+        gives None (a line on stderr); the other pairs are answered. While
+        spans are recorded, the call is a `predict_pairs` span with the
+        stages of predict_batch's under the same names."""
+        if not self.dimer:
+            raise TypeError("predict_pairs needs a dimer Predictor (a CrossPestoModel state dict)")
+        need_sets = max(2, 2 * (int(pipeline_depth) + 1))  # two encodes a chunk, maybe of one shape
+        with self._encoder(num_threads, need_sets) as enc, torch.no_grad(), \
+                tracing.span("predict_pairs", pairs=len(pairs)) as call:
+            return self._predict_pairs_impl(pairs, atoms_per_call, num_threads, pipeline_depth, call, enc)
+
+    def _predict_pairs_impl(self, pairs, atoms_per_call, num_threads, pipeline_depth, call, encoder):
+        compact = self._compact_spec() is not None
+        cid = call.span_id if call is not None else None
+        index, distinct = {}, []
+        for pair in pairs:
+            for s in pair:
+                if id(s) not in index:
+                    index[id(s)] = len(distinct)
+                    distinct.append(s)
+        recs = self._encode_records("predict_pairs", distinct, num_threads, cid)
+
+        groups = {}
+        with tracing.span("predict_pairs.plan", call=cid):
+            for i, (a, b) in enumerate(pairs):
+                sa, sb = index[id(a)], index[id(b)]
+                if recs[sa] is None or recs[sb] is None:
+                    continue
+                swap = recs[sb][0].shape[0] > recs[sa][0].shape[0]
+                if swap:
+                    sa, sb = sb, sa
+                try:
+                    key = self._bucket(recs[sa]) + self._bucket(recs[sb])
+                except ValueError as e:
+                    print(f"SizeError: pair {i}: {e}", file=sys.stderr)
+                    continue
+                groups.setdefault(key, []).append((i, sa, sb, swap))
+        out = [None] * len(pairs)
+        dev = self.device
+
+        def submit(chunk):
+            """Encode and launch one chunk of pairs; its spans' attributes:
+            both sides' buckets, B, the real and padded atoms of both sides,
+            the real pairs' sum of n_a * n_b, the bytes copied to the card,
+            and the kNN, edge and cross-attention launches."""
+            group, na_a, nr_a, na_b, nr_b = chunk
+            with tracing.span("predict_pairs.batch_encode", sums=self._stages, key="batch_encode",
+                              call=cid) as sp:
+                side_a, side_b = [recs[x[1]] for x in group], [recs[x[2]] for x in group]
+                ba = encoder.encode(side_a, na=na_a, nr=nr_a, n_features=self.cfg.em_n0, device=dev)
+                bb = encoder.encode(side_b, na=na_b, nr=nr_b, n_features=self.cfg.em_n0, device=dev)
+                if sp is not None:
+                    n_a = [int(r[0].shape[0]) for r in side_a]
+                    n_b = [int(r[0].shape[0]) for r in side_b]
+                    sent = (ba.X, ba.q, ba.M, ba.atom_mask, bb.X, bb.q, bb.M, bb.atom_mask) if ba.X.is_cuda else ()
+                    sp.attrs.update(na_a=na_a, na_b=na_b, nr_a=nr_a, nr_b=nr_b, B=len(group),
+                                    real_atoms=sum(n_a) + sum(n_b), padded_atoms=len(group) * (na_a + na_b),
+                                    real_pairs=sum(x * y for x, y in zip(n_a, n_b)),
+                                    h2d_bytes=sum(t.nbytes for t in sent))
+            with tracing.span("predict_pairs.launch", call=cid) as sp:
+                if sp is not None:
+                    before = (_knn.knn_kernel.launches, _edge.edge_attention_kernel.launches,
+                              _cross.cross_attention_kernel.launches)
+                probs = self._pair_forward_sigmoid(ba, bb, nr_a if compact else None, nr_b if compact else None)
+                result = self._to_host(*probs)
+                if sp is not None:
+                    after = (_knn.knn_kernel.launches, _edge.edge_attention_kernel.launches,
+                             _cross.cross_attention_kernel.launches)
+                    sp.attrs.update(zip(("knn_launches", "edge_launches", "cross_launches"),
+                                        (y - x for x, y in zip(before, after))))
+            return result
+
+        def collect(chunk, result):
+            (host_a, host_b), ready = result
+            with tracing.span("predict_pairs.collect", sums=self._stages, key="device_wait", call=cid):
+                if ready is not None:
+                    ready.synchronize()
+                pa, pb = host_a.numpy().copy(), host_b.numpy().copy()
+            for j, (i, sa, sb, swap) in enumerate(chunk[0]):
+                a, b = pa[j, : self._n_res(recs[sa])], pb[j, : self._n_res(recs[sb])]
+                out[i] = (b, a) if swap else (a, b)
+
+        chunks = []
+        for key, group in groups.items():
+            bmax = max(1, atoms_per_call // max(key[0], key[2]))  # the budget binds each side
+            chunks += [(group[k : k + bmax], *key) for k in range(0, len(group), bmax)]
+        self._pipeline(chunks, submit, collect, pipeline_depth)
         return out
 
     def predict_pdb_files(self, paths: list, num_threads: int = 8, atoms_per_call: int = 32768,

@@ -7,9 +7,15 @@ end: two structures are embedded, run through a stack of cross-state
 layers (per-structure geometric update + scalar-state cross-attention),
 pooled to residues, and decoded to per-residue interface logits, each
 conditioned on the partner. For training partner-specific interface
-predictors; no reference weights exist for it. One pair of structures per
-call (no batch axis), as in the JAX package. On a card each layer runs the
-edge-attention kernel twice, once per structure.
+predictors; no reference weights exist for it.
+
+One pair per call ([NA, ...] per side), as in the JAX package: each layer
+runs the edge attention once per structure. A batch of pairs ([B, NA, ...]
+per side, the sides in their own buckets) flattens both sides' rows into
+one table: each layer then runs the edge attention once over every row
+(the geometric update is shared by both sides, so this is exact per atom)
+and the cross attention once for both directions of every pair
+(`Predictor.predict_pairs`'s path).
 """
 
 import torch
@@ -17,7 +23,7 @@ from torch import nn
 
 from .config import PestoConfig
 from .extras import CrossStateUpdateLayer
-from .pesto import MLP3, StatePool, safe_norm, unpack_state_features
+from .pesto import MLP3, StatePool, embed_batch, safe_norm, unpack_state_features
 
 
 class CrossPestoModel(nn.Module):
@@ -45,10 +51,15 @@ class CrossPestoModel(nn.Module):
         p = torch.zeros((X.shape[0], 3, self.cfg.em_n1), dtype=dtype, device=X.device)
         return [q, p, ids_topk.to(torch.int32), D_nn[0].to(dtype), R_nn[0].to(dtype), am], M
 
-    def forward(self, A, B):
-        """A/B: (X [NA,3], ids_topk [NA,K], q0 [NA,F], M [NA,NR],
-        atom_mask [NA]) per structure, padded with sink row 0. Returns
-        (zA [NRa,C], zB [NRb,C])."""
+    def forward(self, A, B, nr_a=None, nr_b=None):
+        """A/B: (X, ids_topk, q0, M, atom_mask) per side, padded with sink
+        row 0 and real atoms at rows 1..n. One pair: X [NA, 3], ids_topk
+        [NA, K], q0 [NA, F], M [NA, NR], atom_mask [NA]; returns (zA [NRa, C],
+        zB [NRb, C]). A batch of pairs: each side [B, NA_side, ...], q0 and
+        M dense or integer codes as `PestoModel.forward` takes them (nr_a,
+        nr_b for compact M); returns (zA [B, NRa, C], zB [B, NRb, C])."""
+        if A[0].dim() == 3:
+            return self._pairs(A, B, nr_a, nr_b)
         Z0, M0 = self._embed(*A)
         Z1, M1 = self._embed(*B)
         for layer in self.csul:
@@ -59,4 +70,27 @@ class CrossPestoModel(nn.Module):
         for (q, p, *_), M in ((Z0, M0), (Z1, M1)):
             qr, pr = self.spl(q[None], p[None], M[None])
             out.append(self.dm(torch.cat([qr[0], safe_norm(pr[0], -2)], dim=-1)))
+        return out[0], out[1]
+
+    def _pairs(self, A, B, nr_a, nr_b):
+        """The batched forward: side A's rows, then side B's, in one table."""
+        Bn, NA_a = A[0].shape[:2]
+        NA_b = B[0].shape[1]
+        if B[0].shape[0] != Bn:
+            raise ValueError(f"a batch of pairs needs as many B sides as A sides, got {Bn} and {B[0].shape[0]}")
+        qa, pa, ids_a, Da, Ra, ama, Ma, na = embed_batch(self.cfg, self.em, *A, nr=nr_a)
+        qb, pb, ids_b, Db, Rb, amb, Mb, nb = embed_batch(self.cfg, self.em, *B, nr=nr_b, row0=Bn * NA_a)
+        q, p = torch.cat([qa, qb]), torch.cat([pa, pb])
+        ids, D, R, am = (torch.cat(x) for x in ((ids_a, ids_b), (Da, Db), (Ra, Rb), (ama, amb)))
+        # segment b: side A of pair b, partner Bn + b; segment Bn + b: its side B
+        first = torch.arange(Bn, dtype=torch.int32, device=q.device)
+        segments = (torch.cat([first * NA_a + 1, first * NA_b + (Bn * NA_a + 1)]),
+                    torch.cat([na, nb]).to(torch.int32), torch.cat([first + Bn, first]),
+                    max(NA_a, NA_b) - 1)
+        for layer in self.csul:
+            q, p = layer.pairs(q, p, ids, D, R, am, segments)
+        out = []
+        for rows, NA, M in ((slice(0, Bn * NA_a), NA_a, Ma), (slice(Bn * NA_a, None), NA_b, Mb)):
+            qr, pr = self.spl(q[rows].reshape(Bn, NA, -1), p[rows].reshape(Bn, NA, 3, -1), M)
+            out.append(self.dm(torch.cat([qr, safe_norm(pr, -2)], dim=-1)))
         return out[0], out[1]

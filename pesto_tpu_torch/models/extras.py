@@ -8,11 +8,10 @@ not use (port of `pesto_tpu/models/extras.py`):
     (reference src/model_operations.py:245-334, experimental).
 """
 
-import math
-
 import torch
 from torch import nn
 
+from ..ops.cross_attention import cross_attention
 from .config import LayerConfig
 from .pesto import MLP3, StateUpdateLayer, safe_norm
 
@@ -45,8 +44,12 @@ class CrossStateUpdateLayer(nn.Module):
     The geometric update is the port's StateUpdateLayer, shared by both
     structures: on a card its edge attention is the CUDA kernel (inside its
     autograd Function when a gradient is taken); on the CPU `fused` picks
-    the packed plain version or the literal one. The cross-attention is
-    plain torch."""
+    the packed plain version or the literal one. The cross-attention is the
+    op `ops.cross_attention` over the rows of one table: the CUDA kernel on
+    a card, its plain version on the CPU. A structure's real atoms are its
+    rows 1..n after its sink row 0 (the padded layout of `batching`); the
+    attention skips the partner's padding rather than biasing it, which is
+    the same in float32 (exp(-1e6) is 0)."""
 
     def __init__(self, lc: LayerConfig, cNh: int = 2, cNk: int = 3, fused: bool = True):
         super().__init__()
@@ -60,35 +63,41 @@ class CrossStateUpdateLayer(nn.Module):
 
     def forward(self, Z0, Z1):
         """Z0/Z1: (q, p, ids_topk, D_nn, R_nn, atom_mask) per structure.
-        Returns ((q0', p0'), (q1', p1'))."""
-        Nh, Nk = self.cNh, self.cNk
-        sdk = math.sqrt(Nk)
+        Returns ((q0', p0'), (q1', p1')). Each structure's edge attention
+        runs on its own; both directions of the cross attention run as one
+        op over the two structures' rows."""
         qa0, pz0 = self.sul(*Z0)
         qa1, pz1 = self.sul(*Z1)
+        n0, n1 = qa0.shape[0], qa1.shape[0]
+        am = torch.cat([Z0[5], Z1[5]])
+        dev = qa0.device
+        counts = torch.stack([Z0[5].sum(), Z1[5].sum()]).to(torch.int32)
+        segments = (torch.tensor([1, n0 + 1], dtype=torch.int32, device=dev), counts,
+                    torch.tensor([1, 0], dtype=torch.int32, device=dev), max(n0, n1) - 1)
+        qz = self.cross(torch.cat([qa0, qa1]), torch.cat([pz0, pz1]), am, segments)
+        return (qz[:n0], pz0), (qz[n0:], pz1)
 
-        s0 = torch.cat([qa0, safe_norm(pz0, 1)], dim=1)
-        s1 = torch.cat([qa1, safe_norm(pz1, 1)], dim=1)
-        Q0 = self.cqm(s0).reshape(s0.shape[0], Nh, Nk)
-        Q1 = self.cqm(s1).reshape(s1.shape[0], Nh, Nk)
-        K0, K1 = self.ckm(s0), self.ckm(s1)  # [N,Nk]
-        V0, V1 = self.cvm(s0), self.cvm(s1)  # [N,S]
+    def pairs(self, q, p, ids_topk, D_nn, R_nn, atom_mask, segments):
+        """One layer over a table of both sides' rows of a batch of pairs
+        (`CrossPestoModel`'s batched forward): the shared geometric update
+        once over every row (one edge launch), then the cross attention of
+        `segments` = (offsets, counts, partner, max_rows) as `cross`
+        takes them. Returns (q', p')."""
+        qa, pz = self.sul(q, p, ids_topk, D_nn, R_nn, atom_mask)
+        return self.cross(qa, pz, atom_mask, segments), pz
 
-        # padding atoms of the attended structure are masked out of the
-        # softmax (the reference operates on unpadded structures)
-        am0, am1 = Z0[5].to(qa0.dtype), Z1[5].to(qa1.dtype)
-        bias0 = (am0 - 1.0) * 1e6  # [N0]
-        bias1 = (am1 - 1.0) * 1e6
-
-        # 1 -> 0: every atom of structure 0 attends over structure 1
-        M10 = torch.softmax(torch.einsum("nhk,mk->nhm", Q0, K1 / sdk) + bias1[None, None, :], dim=2)
-        qh0 = torch.einsum("nhm,ms->nhs", M10, V1).reshape(Q0.shape[0], -1)
-        # 0 -> 1
-        M01 = torch.softmax(torch.einsum("nhk,mk->nhm", Q1, K0 / sdk) + bias0[None, None, :], dim=2)
-        qh1 = torch.einsum("nhm,ms->nhs", M01, V0).reshape(Q1.shape[0], -1)
-
-        # re-zero sink/padding rows: qa is zeroed by the inner layer, but
-        # the softmax-pooled qh (plus cpm's bias) is nonzero there, and the
-        # next layer's neighbour gather assumes the state at id 0 is zero
-        qz0 = self.cpm(torch.cat([qa0, qh0], dim=1)) * am0[:, None]
-        qz1 = self.cpm(torch.cat([qa1, qh1], dim=1)) * am1[:, None]
-        return (qz0, pz0), (qz1, pz1)
+    def cross(self, qa, pz, atom_mask, segments):
+        """The cross attention and its output MLP over a table's rows:
+        segment s (rows offsets[s] .. offsets[s] + counts[s], int32 tensors
+        on the rows' device) attends over the rows of segment partner[s];
+        max_rows bounds every count. The sink and padding rows come out
+        zero (the next layer's neighbour gather takes the state at a
+        structure's row 0 to be zero)."""
+        Nh, Nk = self.cNh, self.cNk
+        s = torch.cat([qa, safe_norm(pz, 1)], dim=1)
+        N = s.shape[0]
+        Q = self.cqm(s).reshape(N, Nh, Nk)
+        offsets, counts, partner, max_rows = segments
+        f32 = [x.to(torch.float32).contiguous() for x in (Q, self.ckm(s), self.cvm(s))]
+        qh = cross_attention(*f32, offsets, counts, partner, max_rows).to(qa.dtype)
+        return self.cpm(torch.cat([qa, qh], dim=1)) * atom_mask.to(qa.dtype)[:, None]

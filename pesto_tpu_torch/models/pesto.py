@@ -29,7 +29,7 @@ from .config import LayerConfig, PestoConfig
 
 __all__ = ["safe_norm", "MLP3", "unpack_state_features", "neighbour_vectors",
            "finish_state_features", "StateUpdate",
-           "StateUpdateLayer", "StatePool", "PestoModel"]
+           "StateUpdateLayer", "StatePool", "embed_batch", "PestoModel"]
 
 
 def MLP3(n_in: int, features) -> nn.Sequential:
@@ -280,6 +280,45 @@ class StatePool(nn.Module):
         return self._decode(qh / den[:, :, None, :, 0], ph / den[:, :, None, None, :, 1], dt)
 
 
+def embed_batch(cfg: PestoConfig, em: nn.Module, X, ids_topk, q0, M, atom_mask, nr=None, row0: int = 0):
+    """A batch [B, NA, ...] of padded structures as the layer stack's
+    flattened inputs: (q [B*NA, S], p [B*NA, 3, S], ids [B*NA, K] int32,
+    D_nn, R_nn, atom mask [B*NA], M [B, NA, NR] dense, real atoms [B]).
+    q0 may be the dense one-hot features or integer vocabulary codes, and M
+    the dense membership or integer residue codes (then `nr` is required);
+    out-of-range codes expand to zero rows. Each structure's ids (its sink 0
+    included) shift into its own row range, which starts at row0 (another
+    batch's rows may come first in the same table)."""
+    dtype = em[0].weight.dtype
+    B, NA = X.shape[:2]
+    atom_mask = atom_mask.to(torch.float32)
+    if not torch.is_floating_point(q0):
+        q0 = (q0[..., None] == torch.arange(cfg.em_n0, device=q0.device)).to(torch.float32)
+    if not torch.is_floating_point(M):
+        if nr is None:
+            raise ValueError("compact M (residue codes) requires nr")
+        M = (M[..., None] == torch.arange(nr, device=M.device)).to(torch.float32)
+        M = M * atom_mask[..., None]
+
+    X = X.to(torch.float32)
+    n_real = atom_mask.sum(dim=1).to(torch.int64)
+    D_nn, R_nn = unpack_state_features(X, ids_topk, atom_mask, n_real)
+    offsets = (torch.arange(B, device=X.device, dtype=ids_topk.dtype) * NA)[:, None, None]
+    if row0:
+        offsets = offsets + row0
+    ids_flat = (ids_topk + offsets).reshape(B * NA, -1).to(torch.int32)
+    am = atom_mask.reshape(B * NA)
+    D_nn = D_nn.reshape(B * NA, -1).to(dtype)
+    R_nn = R_nn.reshape(B * NA, -1, 3).to(dtype)
+
+    # embedding; sink/padding rows are zero *after* the MLP, like the
+    # reference's zero-row prepend (model/model.py:34-40)
+    q = em(q0.reshape(B * NA, -1).to(dtype))
+    q = q * am.to(dtype)[:, None]
+    p = torch.zeros((B * NA, 3, cfg.em_n1), dtype=dtype, device=X.device)
+    return q, p, ids_flat, D_nn, R_nn, am, M, n_real
+
+
 class PestoModel(nn.Module):
     """Embedding -> geometric transformer stack -> residue pool -> decoder
     (reference Model, model/model.py:6-52).
@@ -300,37 +339,11 @@ class PestoModel(nn.Module):
         self.dm = MLP3(2 * cfg.spl_n1, dm)
 
     def forward(self, X, ids_topk, q0, M, atom_mask, nr=None):
-        cfg = self.cfg
-        dtype = self.em[0].weight.dtype
         batched = X.dim() == 3
         if not batched:
             X, ids_topk, q0, M, atom_mask = (t[None] for t in (X, ids_topk, q0, M, atom_mask))
         B, NA = X.shape[:2]
-        atom_mask = atom_mask.to(torch.float32)
-        if not torch.is_floating_point(q0):
-            q0 = (q0[..., None] == torch.arange(cfg.em_n0, device=q0.device)).to(torch.float32)
-        if not torch.is_floating_point(M):
-            if nr is None:
-                raise ValueError("compact M (residue codes) requires nr")
-            M = (M[..., None] == torch.arange(nr, device=M.device)).to(torch.float32)
-            M = M * atom_mask[..., None]
-
-        X = X.to(torch.float32)
-        n_real = atom_mask.sum(dim=1).to(torch.int64)
-        D_nn, R_nn = unpack_state_features(X, ids_topk, atom_mask, n_real)
-        # flatten the batch into the atom axis; each structure's ids (its
-        # sink 0 included) shift into its own row range
-        offsets = (torch.arange(B, device=X.device, dtype=ids_topk.dtype) * NA)[:, None, None]
-        ids_flat = (ids_topk + offsets).reshape(B * NA, -1).to(torch.int32)
-        am = atom_mask.reshape(B * NA)
-        D_nn = D_nn.reshape(B * NA, -1).to(dtype)
-        R_nn = R_nn.reshape(B * NA, -1, 3).to(dtype)
-
-        # embedding; sink/padding rows are zero *after* the MLP, like the
-        # reference's zero-row prepend (model/model.py:34-40)
-        q = self.em(q0.reshape(B * NA, -1).to(dtype))
-        q = q * am.to(dtype)[:, None]
-        p = torch.zeros((B * NA, 3, cfg.em_n1), dtype=dtype, device=X.device)
+        q, p, ids_flat, D_nn, R_nn, am, M, _ = embed_batch(self.cfg, self.em, X, ids_topk, q0, M, atom_mask, nr)
         for layer in self.sum:
             q, p = layer(q, p, ids_flat, D_nn, R_nn, am)
 

@@ -24,7 +24,7 @@ from ..utils import tracing
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("knn", "edge_attention", "edge_attention_bwd", "mosaic_repros", "exp_gather")
+SOURCES = ("knn", "edge_attention", "edge_attention_bwd", "cross_attention", "mosaic_repros", "exp_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
