@@ -1762,7 +1762,7 @@ def encode_chunk(pred, recs):
     nr = pick_bucket(max(it[3] for it in items), RES_BUCKETS)
     enc = BatchEncoder(4)
     try:
-        b = enc.encode(items, na=na, nr=nr, n_features=pred.cfg.em_n0, device=pred.device)
+        b = enc.encode(items, na=na, nr=nr, device=pred.device)
     finally:
         enc.close()
     return b, nr, (len(items), na, nr)

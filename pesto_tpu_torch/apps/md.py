@@ -32,20 +32,14 @@ def predict_trajectory(predictor, structure, xyz_frames, chunk: int = 8):
     one forward per chunk of frames on the predictor's device: the frames'
     coordinates fill rows 1..n (row 0 is the sink), and the ids, features
     and residue codes are those of the one structure, shared by the chunk
-    (compact codes where the model takes one vocabulary)."""
-    from ..batching import compute_topology, pad_structure_arrays
-    from ..encoding import encode_features, encode_structure
+    (integer codes, as predict_batch encodes them)."""
+    from ..ops.knn import knn_ids
 
     dev = predictor.device
-    X, M = encode_structure(structure)
-    feats = encode_features(structure)
-    q = np.concatenate([f for f, flag in zip(feats, predictor.cfg.feature_flags) if flag], axis=1)
-    compact = predictor._compact_spec() is not None
-    ps = compute_topology(pad_structure_arrays(X, q, M, compact=compact), device=dev)
-    nr = int(np.sum(ps.res_mask))
-    na, n = ps.X.shape[0], structure["xyz"].shape[0]
-    ids = ps.ids_topk
-    q, M, am = (torch.as_tensor(x).to(dev) for x in (ps.q, ps.M, ps.atom_mask))
+    Xp, q, M, am, n_res, nr = predictor._pad_record(predictor._encode_record(structure))
+    na, n = Xp.shape[0], structure["xyz"].shape[0]
+    Xp, q, M, am = (torch.as_tensor(x).to(dev) for x in (Xp, q, M, am))
+    ids = knn_ids(Xp[None], am[None])[0][0]
 
     probs = []
     with torch.no_grad():
@@ -55,9 +49,8 @@ def predict_trajectory(predictor, structure, xyz_frames, chunk: int = 8):
             Xb = torch.zeros((B, na, 3), dtype=torch.float32, device=dev)
             Xb[:, 1 : n + 1] = frames
             z = predictor.model(Xb, ids.expand(B, *ids.shape), q.expand(B, *q.shape),
-                                M.expand(B, *M.shape), am.expand(B, na),
-                                nr=ps.res_mask.shape[0] if compact else None)
-            probs.append(torch.sigmoid(z.to(torch.float32))[:, :nr])
+                                M.expand(B, *M.shape), am.expand(B, na), nr=nr)
+            probs.append(torch.sigmoid(z.to(torch.float32))[:, :n_res])
     return torch.cat(probs).cpu().numpy()
 
 

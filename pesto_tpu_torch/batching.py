@@ -186,7 +186,8 @@ class BatchEncoder:
     """Reused batch buffers for the serving path (port of
     `pesto_tpu.batching.BatchEncoder`).
 
-    Keeps batch-shaped host buffers per (B, na, nr, F, compact) signature,
+    Keeps batch-shaped host buffers per (B, na, nr, compact, q's row
+    shape) signature (F features, or V vocabularies' codes),
     for the MAX_BATCH_SHAPES signatures used last, and has worker threads
     write each structure's rows in place. Consecutive encode() calls with
     one signature rotate through `n_sets` buffer sets, so a consumer that
@@ -217,10 +218,10 @@ class BatchEncoder:
 
     @staticmethod
     def _alloc(key, pin):
-        B, na, nr, F, compact = key
+        B, na, nr, compact, q_row = key
         # compact: integer codes, expanded on the device by the model
         shapes = dict(X=((B, na, 3), torch.float32),
-                      q=((B, na), torch.int32) if compact else ((B, na, F), torch.float32),
+                      q=((B, na, *q_row), torch.int32 if compact else torch.float32),
                       M=((B, na), torch.int32) if compact else ((B, na, nr), torch.float32),
                       am=((B, na), torch.float32))
         host = {k: torch.zeros(shape, dtype=dt, pin_memory=pin) for k, (shape, dt) in shapes.items()}
@@ -246,14 +247,15 @@ class BatchEncoder:
         return s
 
     def encode(self, items, na: int, nr: int, spatial_sort: bool = False,
-               n_features: int = None, device=None) -> PaddedStructure:
+               device=None) -> PaddedStructure:
         """items: unpadded structures, either dense 3-tuples (X [n,3],
         q [n,F] one-hot, M [n,r] one-hot) or compact 4-tuples (X [n,3],
-        q_codes [n] int, rid_codes [n] int, n_res), with n_features given
-        for compact items. Returns the batch's X, q, M and atom_mask (no
-        ids, no res_mask): numpy for device=None, else tensors on `device`.
-        Sink and padding rows carry code 0 in compact q and M; the model
-        masks them by atom_mask.
+        q_codes int [n, V] (a column per vocabulary, `models.pesto.
+        onehot_codes`) or [n] (one vocabulary), rid_codes [n] int, n_res).
+        Returns the batch's X, q ([B, na, F] float32, or int32 [B, na, V] or
+        [B, na]), M and atom_mask (no ids, no res_mask): numpy for
+        device=None, else tensors on `device`. Sink and padding rows carry
+        code 0 in compact q and M; the model masks them by atom_mask.
 
         spatial_sort=True Morton-sorts the atoms of each structure of more
         than NUM_NN atoms, as the JAX package's encoder does for its TPU
@@ -262,9 +264,8 @@ class BatchEncoder:
         for the structure alone."""
         B = len(items)
         compact = len(items[0]) == 4
-        F = n_features if compact else items[0][1].shape[1]
         dev = None if device is None else torch.device(device)
-        slot = self._get((B, na, nr, F, compact), pin=dev is not None and dev.type == "cuda")
+        slot = self._get((B, na, nr, compact, items[0][1].shape[1:]), pin=dev is not None and dev.type == "cuda")
         buf = slot["np"]
 
         def fill(j):

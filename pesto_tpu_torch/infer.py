@@ -5,7 +5,8 @@ Port of `pesto_tpu/infer.py`. One structure at a time
 on the host (numpy), pad into a bucket, then on the device the kNN
 topology (one kernel launch), the forward (one edge-kernel launch per
 layer) and the sigmoid. Batched (`predict_batch`, `predict_pdb_files`, the
-server's path): records encode to compact codes in a thread pool, group by
+server's path): records encode to integer codes (a column per feature
+vocabulary, the residue codes) in a thread pool, group by
 bucket into chunks under an atom budget, and each chunk runs the batched
 kNN (one launch), the forward over the flattened batch (one edge launch
 per layer) and the sigmoid, with up to `pipeline_depth` chunks in flight
@@ -38,7 +39,7 @@ import torch
 from . import batching
 from .batching import BatchEncoder, PaddedStructure, encode_and_pad, pick_bucket, to_device
 from .device import resolve_device
-from .encoding import encode_features, encode_structure, std_elements, std_names, std_resnames, vocab_codes
+from .encoding import std_elements, std_names, std_resnames, vocab_codes
 from .io import read_structure
 from .models import CrossPestoModel, PestoConfig, PestoModel
 from .ops import cross_attention as _cross
@@ -184,29 +185,8 @@ class Predictor:
         (`parallel.sp`): for structures whose forward does not fit one
         device, in any atom bucket up to the largest. The kNN runs once, on
         the first device, over the whole structure; the forward then runs
-        sharded. Compact integer codes where the features allow them, so
-        the host arrays stay O(atoms)."""
-        rec = self._encode_record(structure)
-        compact = len(rec) == 4
-        X = rec[0]
-        n = X.shape[0]
-        n_res = (rec[3] if n else 0) if compact else rec[2].shape[1]
-        na = pick_bucket(n + 1, batching.ATOM_BUCKETS)
-        nr = pick_bucket(max(n_res, 1), batching.RES_BUCKETS)
-        Xp = np.zeros((na, 3), np.float32)
-        Xp[1 : n + 1] = X
-        am = np.zeros((na,), np.float32)
-        am[1 : n + 1] = 1.0
-        if compact:
-            qp = np.zeros((na,), np.int32)
-            qp[1 : n + 1] = rec[1]
-            Mp = np.zeros((na,), np.int32)
-            Mp[1 : n + 1] = rec[2]
-        else:
-            qp = np.zeros((na, rec[1].shape[1]), np.float32)
-            qp[1 : n + 1] = rec[1]
-            Mp = np.zeros((na, nr), np.float32)
-            Mp[1 : n + 1, :n_res] = rec[2]
+        sharded. Integer codes, so the host arrays stay O(atoms)."""
+        Xp, qp, Mp, am, n_res, nr = self._pad_record(self._encode_record(structure))
         # cached by the mesh's devices, not its identity: a caller that
         # makes an equal mesh per call reuses the replicas
         with self._sp_lock:
@@ -218,8 +198,7 @@ class Predictor:
             Xt = torch.as_tensor(Xp).to(first)
             amt = torch.as_tensor(am).to(first)
             ids, _ = knn_ids(Xt[None], amt[None])
-            z = fwd(Xt, ids[0], torch.as_tensor(qp), torch.as_tensor(Mp), amt,
-                    nr=nr if compact else None)
+            z = fwd(Xt, ids[0], torch.as_tensor(qp), torch.as_tensor(Mp), amt, nr=nr)
             probs = torch.sigmoid(z.to(torch.float32)).cpu().numpy()
         return probs[:n_res]
 
@@ -244,31 +223,50 @@ class Predictor:
         return torch.sigmoid(model(X, ids, q, M, am, nr=nr).to(torch.float32))
 
     def _compact_spec(self):
-        """(vocabulary, record field) when the features are one vocabulary's
-        one-hot (the flagship models use elements only): then the batch
-        carries integer codes. None for several vocabularies."""
-        flags = self.cfg.feature_flags
-        if sum(flags) != 1:
-            return None
-        vocab, field = [(std_elements, "element"), (std_resnames, "resname"),
-                        (std_names, "name")][list(flags).index(True)]
-        if self.cfg.em_n0 != len(vocab) + 1:
-            raise ValueError(f"compact codes need em_n0 == {len(vocab) + 1}, got {self.cfg.em_n0}")
-        return vocab, field
+        """[(vocabulary, record field, offset)] of each feature vocabulary
+        that the config's flags set, in the one-hot's order (elements,
+        residue names, atom names): the offset is the vocabulary's first
+        column of the concatenated one-hot, whose "other" column follows
+        each vocabulary. ValueError when em_n0 is not their total width."""
+        spec, offset = [], 0
+        for flag, vocab, field in zip(self.cfg.feature_flags, (std_elements, std_resnames, std_names),
+                                      ("element", "resname", "name")):
+            if flag:
+                spec.append((vocab, field, offset))
+                offset += len(vocab) + 1
+        if self.cfg.em_n0 != offset:
+            raise ValueError(f"integer codes of the flagged vocabularies need em_n0 == {offset}, "
+                             f"got {self.cfg.em_n0}")
+        return spec
 
     def _encode_record(self, s):
-        """Structure record -> host arrays: a compact 4-tuple (X, q_codes,
-        rid_codes, n_res) or a dense 3-tuple (X, q, M)."""
+        """Structure record -> host arrays (X [n, 3] float32, codes [n, V]
+        int32: a column per vocabulary, offset into the one-hot's columns,
+        residue codes [n] int32, n_res); the device expands both codes
+        (`models.pesto.onehot_codes`)."""
         X = np.asarray(s["xyz"], dtype=np.float32)
         spec = self._compact_spec()
-        if spec is not None:
-            vocab, field = spec
-            _, rid = np.unique(np.asarray(s["resid"]), return_inverse=True)
-            return X, vocab_codes(s[field], vocab), rid.astype(np.int32), int(rid.max()) + 1
-        Xd, M = encode_structure(s)
-        feats = encode_features(s)
-        q = np.concatenate([f for f, fl in zip(feats, self.cfg.feature_flags) if fl], axis=1)
-        return Xd, q, M
+        codes = np.empty((X.shape[0], len(spec)), np.int32)
+        for k, (vocab, field, offset) in enumerate(spec):
+            codes[:, k] = vocab_codes(s[field], vocab) + offset
+        _, rid = np.unique(np.asarray(s["resid"]), return_inverse=True)
+        return X, codes, rid.astype(np.int32), int(rid.max()) + 1
+
+    @staticmethod
+    def _pad_record(rec):
+        """An encoded record padded to its buckets, as numpy: (X [na, 3],
+        codes [na, V], residue codes [na], atom mask [na], n_res, nr), sink
+        and padding rows code 0 as the BatchEncoder fills them."""
+        X, codes, rid, n_res = rec
+        n = X.shape[0]
+        na = pick_bucket(n + 1, batching.ATOM_BUCKETS)
+        nr = pick_bucket(max(n_res, 1), batching.RES_BUCKETS)
+        Xp = np.zeros((na, 3), np.float32)
+        qp = np.zeros((na, codes.shape[1]), np.int32)
+        Mp = np.zeros((na,), np.int32)
+        am = np.zeros((na,), np.float32)
+        Xp[1 : n + 1], qp[1 : n + 1], Mp[1 : n + 1], am[1 : n + 1] = X, codes, rid, 1.0
+        return Xp, qp, Mp, am, n_res, nr
 
     def warmup(self, buckets=None, batch_sizes=(1,)) -> None:
         """Build the CUDA libraries (on a card) and run one chunk per
@@ -284,7 +282,7 @@ class Predictor:
         if buckets is None:
             buckets = [(na, pick_bucket(max(na // 8, batching.RES_BUCKETS[0]), batching.RES_BUCKETS))
                        for na in batching.ATOM_BUCKETS if na <= 32768]
-        compact = self._compact_spec() is not None
+        n_vocab = len(self._compact_spec())
         replicas = self._replicas if self.mesh is not None else {self.device: self.model}
         for na, nr in buckets:
             X, q, M = random_structure_arrays(n_atoms=min(na - 1, 64), n_res=min(nr, 8),
@@ -294,12 +292,10 @@ class Predictor:
                 for dev in replicas:
                     batch = to_device(dataclasses.replace(batching.stack_batch([ps] * b), ids_topk=None),
                                       dev)
-                    if compact:
-                        codes = torch.zeros((b, na), dtype=torch.int32, device=dev)
-                        probs = self._knn_forward_sigmoid(batch.X, codes, codes, batch.atom_mask, nr=nr)
-                    else:
-                        probs = self._knn_forward_sigmoid(batch.X, batch.q, batch.M, batch.atom_mask)
-                    probs.cpu()
+                    # the [b, na, V] feature codes and [b, na] residue codes of predict_batch
+                    codes = torch.zeros((b, na, n_vocab), dtype=torch.int32, device=dev)
+                    rid = torch.zeros((b, na), dtype=torch.int32, device=dev)
+                    self._knn_forward_sigmoid(batch.X, codes, rid, batch.atom_mask, nr=nr).cpu()
 
     @contextlib.contextmanager
     def _encoder(self, num_threads, need_sets):
@@ -344,14 +340,11 @@ class Predictor:
         return recs
 
     @staticmethod
-    def _n_res(rec) -> int:
-        return rec[3] if len(rec) == 4 else rec[2].shape[1]
-
-    def _bucket(self, rec):
+    def _bucket(rec):
         """(atom bucket, residue bucket) of an encoded record; ValueError
         past the largest."""
         return (pick_bucket(rec[0].shape[0] + 1, batching.ATOM_BUCKETS),
-                pick_bucket(max(self._n_res(rec), 1), batching.RES_BUCKETS))
+                pick_bucket(max(rec[3], 1), batching.RES_BUCKETS))
 
     @staticmethod
     def _to_host(*probs):
@@ -405,7 +398,6 @@ class Predictor:
                                             pipeline_depth, call, enc)
 
     def _predict_batch_impl(self, structures, atoms_per_call, num_threads, pipeline_depth, call, encoder):
-        compact = self._compact_spec() is not None
         cid = call.span_id if call is not None else None
         recs = self._encode_records("predict_batch", structures, num_threads, cid)
 
@@ -429,23 +421,22 @@ class Predictor:
             """Encode and launch one chunk's part on `dev`; the probabilities
             come back to pinned host memory asynchronously, behind an
             event. Its spans' attributes: the bucket, B, the real and padded
-            atoms and the bytes copied to the card; the kNN and edge
-            launches."""
+            atoms, the feature codes' columns (`codes`: V) and the bytes
+            copied to the card; the kNN and edge launches."""
             with tracing.span("predict_batch.batch_encode", sums=self._stages, key="batch_encode",
                               call=cid) as sp:
                 # on a card a copy out of the encoder's pinned buffers, which
                 # the encoder refills only after the copy's event
-                b = encoder.encode([recs[i] for i in part], na=na, nr=nr,
-                                   n_features=self.cfg.em_n0, device=dev)
+                b = encoder.encode([recs[i] for i in part], na=na, nr=nr, device=dev)
                 if sp is not None:
                     sent = (b.X, b.q, b.M, b.atom_mask) if b.X.is_cuda else ()
                     sp.attrs.update(na=na, nr=nr, B=len(part), padded_atoms=len(part) * na,
                                     real_atoms=sum(int(recs[i][0].shape[0]) for i in part),
-                                    h2d_bytes=sum(t.nbytes for t in sent))
+                                    codes=int(b.q.shape[-1]), h2d_bytes=sum(t.nbytes for t in sent))
             with tracing.span("predict_batch.launch", call=cid) as sp:
                 if sp is not None:
                     knn0, edge0 = _knn.knn_kernel.launches, _edge.edge_attention_kernel.launches
-                probs = self._knn_forward_sigmoid(b.X, b.q, b.M, b.atom_mask, nr=nr if compact else None)
+                probs = self._knn_forward_sigmoid(b.X, b.q, b.M, b.atom_mask, nr=nr)
                 (host,), ready = self._to_host(probs)
                 if sp is not None:
                     sp.attrs.update(knn_launches=_knn.knn_kernel.launches - knn0,
@@ -477,7 +468,7 @@ class Predictor:
                         ready.synchronize()
                 probs = np.concatenate([host.numpy() for host, _ in results])
             for j, i in enumerate(chunk[0]):
-                out[i] = probs[j, : self._n_res(recs[i])]
+                out[i] = probs[j, : recs[i][3]]
 
         chunks = []
         for (na, nr), group in buckets.items():
@@ -525,7 +516,6 @@ class Predictor:
             return self._predict_pairs_impl(pairs, atoms_per_call, num_threads, pipeline_depth, call, enc)
 
     def _predict_pairs_impl(self, pairs, atoms_per_call, num_threads, pipeline_depth, call, encoder):
-        compact = self._compact_spec() is not None
         cid = call.span_id if call is not None else None
         index, distinct = {}, []
         for pair in pairs:
@@ -556,27 +546,28 @@ class Predictor:
         def submit(chunk):
             """Encode and launch one chunk of pairs; its spans' attributes:
             both sides' buckets, B, the real and padded atoms of both sides,
-            the real pairs' sum of n_a * n_b, the bytes copied to the card,
-            and the kNN, edge and cross-attention launches."""
+            the real pairs' sum of n_a * n_b, the feature codes' columns, the
+            bytes copied to the card, and the kNN, edge and cross-attention
+            launches."""
             group, na_a, nr_a, na_b, nr_b = chunk
             with tracing.span("predict_pairs.batch_encode", sums=self._stages, key="batch_encode",
                               call=cid) as sp:
                 side_a, side_b = [recs[x[1]] for x in group], [recs[x[2]] for x in group]
-                ba = encoder.encode(side_a, na=na_a, nr=nr_a, n_features=self.cfg.em_n0, device=dev)
-                bb = encoder.encode(side_b, na=na_b, nr=nr_b, n_features=self.cfg.em_n0, device=dev)
+                ba = encoder.encode(side_a, na=na_a, nr=nr_a, device=dev)
+                bb = encoder.encode(side_b, na=na_b, nr=nr_b, device=dev)
                 if sp is not None:
                     n_a = [int(r[0].shape[0]) for r in side_a]
                     n_b = [int(r[0].shape[0]) for r in side_b]
                     sent = (ba.X, ba.q, ba.M, ba.atom_mask, bb.X, bb.q, bb.M, bb.atom_mask) if ba.X.is_cuda else ()
                     sp.attrs.update(na_a=na_a, na_b=na_b, nr_a=nr_a, nr_b=nr_b, B=len(group),
                                     real_atoms=sum(n_a) + sum(n_b), padded_atoms=len(group) * (na_a + na_b),
-                                    real_pairs=sum(x * y for x, y in zip(n_a, n_b)),
+                                    real_pairs=sum(x * y for x, y in zip(n_a, n_b)), codes=int(ba.q.shape[-1]),
                                     h2d_bytes=sum(t.nbytes for t in sent))
             with tracing.span("predict_pairs.launch", call=cid) as sp:
                 if sp is not None:
                     before = (_knn.knn_kernel.launches, _edge.edge_attention_kernel.launches,
                               _cross.cross_attention_kernel.launches)
-                probs = self._pair_forward_sigmoid(ba, bb, nr_a if compact else None, nr_b if compact else None)
+                probs = self._pair_forward_sigmoid(ba, bb, nr_a, nr_b)
                 result = self._to_host(*probs)
                 if sp is not None:
                     after = (_knn.knn_kernel.launches, _edge.edge_attention_kernel.launches,
@@ -592,7 +583,7 @@ class Predictor:
                     ready.synchronize()
                 pa, pb = host_a.numpy().copy(), host_b.numpy().copy()
             for j, (i, sa, sb, swap) in enumerate(chunk[0]):
-                a, b = pa[j, : self._n_res(recs[sa])], pb[j, : self._n_res(recs[sb])]
+                a, b = pa[j, : recs[sa][3]], pb[j, : recs[sb][3]]
                 out[i] = (b, a) if swap else (a, b)
 
         chunks = []

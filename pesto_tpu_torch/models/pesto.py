@@ -29,7 +29,7 @@ from .config import LayerConfig, PestoConfig
 
 __all__ = ["safe_norm", "MLP3", "unpack_state_features", "neighbour_vectors",
            "finish_state_features", "StateUpdate",
-           "StateUpdateLayer", "StatePool", "embed_batch", "PestoModel"]
+           "StateUpdateLayer", "StatePool", "onehot_codes", "embed_batch", "PestoModel"]
 
 
 def MLP3(n_in: int, features) -> nn.Sequential:
@@ -280,20 +280,32 @@ class StatePool(nn.Module):
         return self._decode(qh / den[:, :, None, :, 0], ph / den[:, :, None, None, :, 1], dt)
 
 
+def onehot_codes(codes, width: int) -> torch.Tensor:
+    """Integer feature codes of a batch as its float32 0/1 input features
+    [B, NA, width]. codes [B, NA, V] hold one column per vocabulary, each
+    code already offset to its vocabulary's columns of the concatenated
+    one-hot, so one comparison serves any V; [B, NA] is one vocabulary's.
+    An out-of-range code sets no column."""
+    if codes.dim() == 2:
+        codes = codes[..., None]
+    return (codes[..., None] == torch.arange(width, device=codes.device)).any(-2).to(torch.float32)
+
+
 def embed_batch(cfg: PestoConfig, em: nn.Module, X, ids_topk, q0, M, atom_mask, nr=None, row0: int = 0):
     """A batch [B, NA, ...] of padded structures as the layer stack's
     flattened inputs: (q [B*NA, S], p [B*NA, 3, S], ids [B*NA, K] int32,
     D_nn, R_nn, atom mask [B*NA], M [B, NA, NR] dense, real atoms [B]).
-    q0 may be the dense one-hot features or integer vocabulary codes, and M
-    the dense membership or integer residue codes (then `nr` is required);
-    out-of-range codes expand to zero rows. Each structure's ids (its sink 0
-    included) shift into its own row range, which starts at row0 (another
-    batch's rows may come first in the same table)."""
+    q0 may be the dense one-hot features or integer feature codes
+    (`onehot_codes`), and M the dense membership or integer residue codes
+    (then `nr` is required); out-of-range codes expand to zero rows. Each
+    structure's ids (its sink 0 included) shift into its own row range,
+    which starts at row0 (another batch's rows may come first in the same
+    table)."""
     dtype = em[0].weight.dtype
     B, NA = X.shape[:2]
     atom_mask = atom_mask.to(torch.float32)
     if not torch.is_floating_point(q0):
-        q0 = (q0[..., None] == torch.arange(cfg.em_n0, device=q0.device)).to(torch.float32)
+        q0 = onehot_codes(q0, cfg.em_n0)
     if not torch.is_floating_point(M):
         if nr is None:
             raise ValueError("compact M (residue codes) requires nr")
@@ -324,7 +336,8 @@ class PestoModel(nn.Module):
     (reference Model, model/model.py:6-52).
 
     forward takes one padded structure ([NA, ...]) or a batch ([B, NA, ...]).
-    q0 may be the dense one-hot features or integer vocabulary codes, and M
+    q0 may be the dense one-hot features or integer feature codes
+    (`onehot_codes`: [..., NA] of one vocabulary or [..., NA, V]), and M
     the dense membership or integer residue codes (then `nr` is required);
     out-of-range codes expand to zero rows."""
 

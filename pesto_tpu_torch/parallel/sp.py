@@ -42,7 +42,7 @@ import torch
 from torch import nn
 
 from ..batching import PaddedStructure
-from ..models.pesto import finish_state_features, neighbour_vectors, safe_norm
+from ..models.pesto import finish_state_features, neighbour_vectors, onehot_codes, safe_norm
 from ..train.loss import masked_bce_with_pos_weight, update_pos_ratios
 from . import comm
 from .mesh import canonical, replicate
@@ -70,7 +70,7 @@ def _cell_state(model, dev, cell, a, geometry, dmax, rows, nr, dtype):
         D, R = finish_state_features(R, D, dmax, am)
         ids = rows.gather(1, cell["ids"].reshape(Bi, -1).long()).reshape(Bi * n, -1)
     if not torch.is_floating_point(q0):
-        q0 = (q0[..., None] == torch.arange(cfg.em_n0, device=dev)).to(torch.float32)
+        q0 = onehot_codes(q0, cfg.em_n0)
     if not torch.is_floating_point(M):
         M = (M[..., None] == torch.arange(nr, device=dev)).to(torch.float32) * am[..., None]
     am_flat = am.reshape(-1)

@@ -83,8 +83,8 @@ def test_batch_encoder_buffers_equal_jax(compact, spatial_sort):
     try:
         items = _items(compact)
         for batch in (items, items[::-1], [items[0]] * 5):
-            kw = dict(na=1024, nr=128, spatial_sort=spatial_sort, n_features=30)
-            got, want = enc.encode(batch, **kw), jenc.encode(batch, **kw)
+            kw = dict(na=1024, nr=128, spatial_sort=spatial_sort)
+            got, want = enc.encode(batch, **kw), jenc.encode(batch, **kw, n_features=30)
             # the port fills no ids and no res_mask: a chunk computes its
             # kNN on the device and takes nr from its bucket
             assert got.ids_topk is None and got.res_mask is None
@@ -112,8 +112,8 @@ def test_batch_encoder_refills_a_set_only_after_its_copy(monkeypatch):
     monkeypatch.setattr(batching, "MAX_BATCH_SHAPES", 2)
     enc = batching.BatchEncoder(2, n_sets=2)
     try:
-        items, kw = _items(True), dict(na=1024, nr=128, n_features=30)
-        key = (len(items), 1024, 128, 30, True)
+        items, kw = _items(True), dict(na=1024, nr=128)
+        key = (len(items), 1024, 128, True, ())
         first = enc.encode(items, **kw, device="cpu")  # tensors aliasing set 0
         assert first.X.data_ptr() == enc._sigs[key]["sets"][0]["np"]["X"].ctypes.data
         enc._sigs[key]["sets"][0]["ready"] = Copy()

@@ -152,7 +152,7 @@ def test_sp_forward_replicates_per_distinct_device(model):
 # ---- Predictor: sharded structures and data-parallel serving ------------------------
 
 
-@pytest.mark.parametrize("variant", ["i_v4_0", "i_v3_0"])  # compact codes; dense one-hot features
+@pytest.mark.parametrize("variant", ["i_v4_0", "i_v3_0"])  # codes of one vocabulary; of three
 def test_predict_structure_sp_matches_predict_structure_and_jax(model, variant, record_property):
     jcfg, params, cfg, sd = model
     if variant != "i_v4_0":
