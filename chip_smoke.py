@@ -171,10 +171,10 @@ not beside this file). Phases, each of which fails the run on error:
      against CPU at atol 1e-4, both with i_v4_0 (16 layers of the same
      width: the CPU's plain 32-layer forward would take most of the
      phase); the cross model (CrossPestoModel at i_v4_1 width) on
-     the complex's chains A and B, through its one-pair call (64 edge and
-     32 cross-attention launches per forward, 64 edge backward launches
-     per backward) and through its batched path (each chain a batch of
-     one, both chains' rows in one table: 32, 32 and 32), each forward and
+     the complex's chains A and B, through its one-pair call (a batch of
+     one pair inside the model: 32 edge and 32 cross-attention launches per
+     forward, 32 edge backward launches per backward) and through its
+     batched path (each chain a batch of one: 32, 32 and 32), each forward and
      backward by CUDA events (median of 3), a finite gradient on every
      parameter, and on a 2 x 1000-atom pair its logits against the CPU's at
      atol 1e-4 and each gradient at a relative L2 error of 1e-3; the
@@ -1755,9 +1755,9 @@ def over_bucket_pdb(path):
 def encode_chunk(pred, recs):
     """recs (one bucket) encoded into one chunk on the card, as
     predict_batch encodes it: (batch, nr, (B, na, nr))."""
-    from pesto_tpu_torch.batching import ATOM_BUCKETS, RES_BUCKETS, BatchEncoder, pick_bucket
+    from pesto_tpu_torch.batching import ATOM_BUCKETS, RES_BUCKETS, BatchEncoder, encode_record, pick_bucket
 
-    items = [pred._encode_record(r) for r in recs]
+    items = [encode_record(r, pred.cfg) for r in recs]
     na = pick_bucket(max(len(it[0]) for it in items) + 1, ATOM_BUCKETS)
     nr = pick_bucket(max(it[3] for it in items), RES_BUCKETS)
     enc = BatchEncoder(4)
@@ -1775,11 +1775,11 @@ def profile_chunk(pred, recs):
     from torch.profiler import ProfilerActivity, profile
 
     b, nr, shape = encode_chunk(pred, recs)
-    pred._knn_forward_sigmoid(b.X, b.q, b.M, b.atom_mask, nr=nr)  # warm
+    pred._forward((b.X, b.q, b.M, b.atom_mask, nr))  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred._knn_forward_sigmoid(b.X, b.q, b.M, b.atom_mask, nr=nr)
+        pred._forward((b.X, b.q, b.M, b.atom_mask, nr))
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     kernels = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
@@ -1866,7 +1866,7 @@ def check_chunk_kernels(pred, recs, name):
     check_num_atoms(b, recs, f"{name} B={B}@{na}", pred.device)
     knn_case = check_knn_case(f"{name} B={B}@{na}", b.X.cpu().numpy(), b.atom_mask.cpu().numpy(), knn,
                               pred.device)
-    inputs = capture_edge_inputs(lambda: pred._knn_forward_sigmoid(b.X, b.q, b.M, b.atom_mask, nr=nr))
+    inputs = capture_edge_inputs(lambda: pred._forward((b.X, b.q, b.M, b.atom_mask, nr)))
     tol = BF16_TOL if pred.cfg.dtype == "bfloat16" else FP32_TOL
     errs = check_edge_inputs(inputs, f"{name} ({pred.cfg.dtype})", tol, B, na)
     return knn_case["dev"], errs
@@ -2874,10 +2874,10 @@ def phase_traj(dev, tmp):
             return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]), zA, zB
 
         small = [random_structure_record(n_atoms=CROSS_SMALL[0], n_res=CROSS_SMALL[1], seed=s) for s in (93, 94)]
-        # the one-pair call runs the edge attention once per chain (2 a layer,
-        # forward and backward), the batched path once over both chains'
-        # rows; both run one cross-attention launch a layer
-        for key, batched, edge_per_layer in (("cross_one_pair", False, 2), ("cross", True, 1)):
+        # the one-pair call is the batched path on a batch of one pair: both
+        # run the edge attention once a layer over both chains' rows, forward
+        # and backward, and one cross-attention launch a layer
+        for key, batched in (("cross_one_pair", False), ("cross", True)):
             A, B = (cross_inputs(subunits[c], dev, batched) for c in ("A:0", "B:0"))
             fwd_bwd(cross, A, B, True)  # warm
             torch.cuda.reset_peak_memory_stats()
@@ -2888,11 +2888,11 @@ def phase_traj(dev, tmp):
             cross_launches = dict(read_launches(), cross=cross_attention_kernel.launches)
             cross_bwd = edge_attention_backward_kernel.launches
             cross_peak = torch.cuda.max_memory_allocated() / 2**30
-            n_edge = edge_per_layer * n_layers
+            n_edge = n_layers  # one edge launch a layer
             want = {"knn": 0, "edge": n_edge * CROSS_RUNS, "cross": n_layers * CROSS_RUNS}
             if cross_launches != want or cross_bwd != n_edge * CROSS_RUNS:
                 raise AssertionError(f"{key} launches {cross_launches}, backward {cross_bwd}, expected {want} and "
-                                     f"{n_edge * CROSS_RUNS} backward ({edge_per_layer} edge a layer forward and "
+                                     f"{n_edge * CROSS_RUNS} backward (1 edge a layer forward and "
                                      "backward, 1 cross attention a layer)")
             for k, prm in cross.named_parameters():
                 if prm.grad is None or not torch.isfinite(prm.grad).all():

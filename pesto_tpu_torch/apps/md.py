@@ -33,10 +33,11 @@ def predict_trajectory(predictor, structure, xyz_frames, chunk: int = 8):
     coordinates fill rows 1..n (row 0 is the sink), and the ids, features
     and residue codes are those of the one structure, shared by the chunk
     (integer codes, as predict_batch encodes them)."""
+    from ..batching import encode_record, pad_record
     from ..ops.knn import knn_ids
 
     dev = predictor.device
-    Xp, q, M, am, n_res, nr = predictor._pad_record(predictor._encode_record(structure))
+    Xp, q, M, am, n_res, nr = pad_record(encode_record(structure, predictor.cfg))
     na, n = Xp.shape[0], structure["xyz"].shape[0]
     Xp, q, M, am = (torch.as_tensor(x).to(dev) for x in (Xp, q, M, am))
     ids = knn_ids(Xp[None], am[None])[0][0]

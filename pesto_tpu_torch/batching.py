@@ -12,8 +12,10 @@ Padding runs on the host in numpy (in the trainer's loader workers too,
 which never touch the card); the topology runs on the device that the
 caller names, and `to_device` moves a batch there. `BatchEncoder` fills
 reused (on a card, pinned) batch buffers for the serving path and copies
-them to the device. The one-hot gather tables of the JAX package are not
-ported: the edge kernel gathers its neighbour rows itself.
+them to the device; `encode_record` gives the integer codes of a record
+that it takes, and `pad_record` pads them alone. The one-hot gather
+tables of the JAX package are not ported: the edge kernel gathers its
+neighbour rows itself.
 """
 
 import collections
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .encoding import encode_features, encode_structure
+from .encoding import encode_features, encode_structure, std_elements, std_names, std_resnames, vocab_codes
 from .ops.knn import knn_ids
 from .spatial import morton_order
 from .utils import tracing
@@ -145,6 +147,59 @@ def encode_and_pad(
     return compute_topology(ps, device=device)
 
 
+def compact_spec(cfg):
+    """[(vocabulary, record field, offset)] of each feature vocabulary that
+    the config's flags set, in the one-hot's order (elements, residue names,
+    atom names): the offset is the vocabulary's first column of the
+    concatenated one-hot, whose "other" column follows each vocabulary.
+    ValueError when cfg.em_n0 is not their total width."""
+    spec, offset = [], 0
+    for flag, vocab, field in zip(cfg.feature_flags, (std_elements, std_resnames, std_names),
+                                  ("element", "resname", "name")):
+        if flag:
+            spec.append((vocab, field, offset))
+            offset += len(vocab) + 1
+    if cfg.em_n0 != offset:
+        raise ValueError(f"integer codes of the flagged vocabularies need em_n0 == {offset}, got {cfg.em_n0}")
+    return spec
+
+
+def encode_record(s: dict, cfg):
+    """Structure record -> the host arrays `BatchEncoder` takes: (X [n, 3]
+    float32, codes [n, V] int32 of `compact_spec(cfg)`, a column per
+    vocabulary, offset into the one-hot's columns, residue codes [n]
+    int32, n_res); the device expands both codes (`models.pesto.
+    onehot_codes`)."""
+    X = np.asarray(s["xyz"], dtype=np.float32)
+    spec = compact_spec(cfg)
+    codes = np.empty((X.shape[0], len(spec)), np.int32)
+    for k, (vocab, field, offset) in enumerate(spec):
+        codes[:, k] = vocab_codes(s[field], vocab) + offset
+    _, rid = np.unique(np.asarray(s["resid"]), return_inverse=True)
+    return X, codes, rid.astype(np.int32), int(rid.max()) + 1
+
+
+def record_buckets(rec):
+    """(atom bucket, residue bucket) of an `encode_record` result;
+    ValueError past the largest."""
+    return (pick_bucket(rec[0].shape[0] + 1, ATOM_BUCKETS), pick_bucket(max(rec[3], 1), RES_BUCKETS))
+
+
+def pad_record(rec):
+    """An `encode_record` result padded to its buckets, as numpy: (X [na,
+    3], codes [na, V], residue codes [na], atom mask [na], n_res, nr), sink
+    and padding rows code 0 as `BatchEncoder` fills them."""
+    X, codes, rid, n_res = rec
+    n = X.shape[0]
+    na, nr = record_buckets(rec)
+    Xp = np.zeros((na, 3), np.float32)
+    qp = np.zeros((na, codes.shape[1]), np.int32)
+    Mp = np.zeros((na,), np.int32)
+    am = np.zeros((na,), np.float32)
+    Xp[1 : n + 1], qp[1 : n + 1], Mp[1 : n + 1], am[1 : n + 1] = X, codes, rid, 1.0
+    return Xp, qp, Mp, am, n_res, nr
+
+
 def stack_batch(structures: list) -> PaddedStructure:
     """Stack same-bucket PaddedStructures into a batch (leading dim B):
     numpy when every field is numpy, torch tensors otherwise. y is stacked
@@ -250,8 +305,9 @@ class BatchEncoder:
                device=None) -> PaddedStructure:
         """items: unpadded structures, either dense 3-tuples (X [n,3],
         q [n,F] one-hot, M [n,r] one-hot) or compact 4-tuples (X [n,3],
-        q_codes int [n, V] (a column per vocabulary, `models.pesto.
-        onehot_codes`) or [n] (one vocabulary), rid_codes [n] int, n_res).
+        q_codes int [n, V] (a column per vocabulary, `encode_record`,
+        `models.pesto.onehot_codes`) or [n] (one vocabulary), rid_codes
+        [n] int, n_res).
         Returns the batch's X, q ([B, na, F] float32, or int32 [B, na, V] or
         [B, na]), M and atom_mask (no ids, no res_mask): numpy for
         device=None, else tensors on `device`. Sink and padding rows carry

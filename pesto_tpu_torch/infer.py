@@ -1,20 +1,20 @@
 """Inference: structure files -> per-residue interface probabilities.
 
-Port of `pesto_tpu/infer.py`. One structure at a time
-(`predict_structure`, `predict_pdb_file`): parse, clean and concatenate
-on the host (numpy), pad into a bucket, then on the device the kNN
-topology (one kernel launch), the forward (one edge-kernel launch per
-layer) and the sigmoid. Batched (`predict_batch`, `predict_pdb_files`, the
-server's path): records encode to integer codes (a column per feature
-vocabulary, the residue codes) in a thread pool, group by
-bucket into chunks under an atom budget, and each chunk runs the batched
-kNN (one launch), the forward over the flattened batch (one edge launch
-per layer) and the sigmoid, with up to `pipeline_depth` chunks in flight
-on the device while the host encodes the next one. Pairs of structures
-(`predict_pairs`, a Predictor of the dimer model) take the same stages:
-each chunk holds pairs of one key of both sides' buckets, runs the kNN of
-each side and the dimer's forward over both sides' rows (one edge and one
-cross-attention launch per layer).
+Port of `pesto_tpu/infer.py`. Records encode to integer codes (a column
+per feature vocabulary, the residue codes: `batching.encode_record`). One
+structure at a time (`predict_structure`, `predict_pdb_file`): parse,
+clean and concatenate on the host (numpy), pad the codes into a bucket,
+then on the device the kNN topology (one kernel launch), the forward (one
+edge-kernel launch per layer) and the sigmoid. Batched (`predict_batch`,
+`predict_pdb_files`, the server's path) and pairs of structures
+(`predict_pairs`, a Predictor of the dimer model) share one scheduler
+(`_schedule`): the records encode in a thread pool, the items (a record,
+or a pair's two) group by their sides' buckets into chunks under an atom
+budget, and each chunk runs the batched kNN of each side (one launch a
+side), the forward over the flattened batch (one edge launch per layer,
+and for the dimer one cross-attention launch) and the sigmoid, with up to
+`pipeline_depth` chunks in flight on the device while the host encodes
+the next one.
 
 Several devices, from this one process (`parallel.mesh.make_mesh`):
 `Predictor(mesh=)` serves data-parallel, each chunk split across the
@@ -37,9 +37,8 @@ import numpy as np
 import torch
 
 from . import batching
-from .batching import BatchEncoder, PaddedStructure, encode_and_pad, pick_bucket, to_device
+from .batching import BatchEncoder, PaddedStructure, pick_bucket, to_device
 from .device import resolve_device
-from .encoding import std_elements, std_names, std_resnames, vocab_codes
 from .io import read_structure
 from .models import CrossPestoModel, PestoConfig, PestoModel
 from .ops import cross_attention as _cross
@@ -132,12 +131,16 @@ class Predictor:
         """sigmoid(logits) as float32 numpy."""
         return torch.sigmoid(self.logits(ps).to(torch.float32)).cpu().numpy()
 
+    @torch.no_grad()
     def predict_structure(self, structure: dict) -> np.ndarray:
-        """Cleaned and concatenated structure record -> [n_res, C] probs."""
-        ps = encode_and_pad(structure, feature_flags=self.cfg.feature_flags,
-                            device=self.device)
-        nr = int(np.sum(ps.res_mask))
-        return self.probabilities(ps)[:nr]
+        """Cleaned and concatenated structure record -> [n_res, C] probs:
+        its integer codes padded to its buckets (`batching.pad_record`), the
+        kNN, the forward and the sigmoid on the device."""
+        Xp, qp, Mp, am, n_res, nr = batching.pad_record(batching.encode_record(structure, self.cfg))
+        X, am = self._tensor(Xp), self._tensor(am)
+        ids, _ = knn_ids(X[None], am[None])
+        z = self.model(X, ids[0], self._tensor(qp), self._tensor(Mp), am, nr=nr)
+        return torch.sigmoid(z.to(torch.float32)).cpu().numpy()[:n_res]
 
     def export_compiled(self, path: str, buckets=((512, 64),)) -> None:
         """Save the forward as `torch.export` programs, one per (na, nr)
@@ -186,7 +189,7 @@ class Predictor:
         device, in any atom bucket up to the largest. The kNN runs once, on
         the first device, over the whole structure; the forward then runs
         sharded. Integer codes, so the host arrays stay O(atoms)."""
-        Xp, qp, Mp, am, n_res, nr = self._pad_record(self._encode_record(structure))
+        Xp, qp, Mp, am, n_res, nr = batching.pad_record(batching.encode_record(structure, self.cfg))
         # cached by the mesh's devices, not its identity: a caller that
         # makes an equal mesh per call reuses the replicas
         with self._sp_lock:
@@ -212,61 +215,31 @@ class Predictor:
     # -- batched inference ------------------------------------------------
 
     @torch.no_grad()
-    def _knn_forward_sigmoid(self, X, q, M, am, nr=None) -> torch.Tensor:
-        """One chunk on the device: the batched kNN, the forward over the
-        flattened batch (by the replica on X's device, over a mesh) and an
-        fp32 sigmoid. X [B, NA, 3], am [B, NA] float32; q and M dense or
-        integer codes (then nr is required). Returns probabilities
-        [B, NR, C] without a host sync."""
-        ids, _ = knn_ids(X, am)
-        model = self.model if self.mesh is None else self._replicas[canonical(X.device)]
-        return torch.sigmoid(model(X, ids, q, M, am, nr=nr).to(torch.float32))
+    def _forward(self, *sides) -> tuple:
+        """One chunk on the device: the batched kNN of each side, the
+        model's forward over the flattened batch and an fp32 sigmoid. A side
+        is (X [B, NA, 3], q, M, atom_mask [B, NA] float32, nr), q and M dense
+        or integer codes (then nr is required): one side for a PestoModel,
+        run by the replica on X's device over a mesh; the two sides of a
+        batch of pairs for the dimer, both sides' rows in one table.
+        Returns each side's probabilities [B, NR, C] without a host sync."""
+        inputs = [((X, knn_ids(X, am)[0], q, M, am), nr) for X, q, M, am, nr in sides]
+        if self.dimer:
+            (A, nr_a), (B, nr_b) = inputs
+            z = self.model(A, B, nr_a=nr_a, nr_b=nr_b)
+        else:
+            ((X, *rest), nr), = inputs
+            model = self.model if self.mesh is None else self._replicas[canonical(X.device)]
+            z = (model(X, *rest, nr=nr),)
+        return tuple(torch.sigmoid(t.to(torch.float32)) for t in z)
 
-    def _compact_spec(self):
-        """[(vocabulary, record field, offset)] of each feature vocabulary
-        that the config's flags set, in the one-hot's order (elements,
-        residue names, atom names): the offset is the vocabulary's first
-        column of the concatenated one-hot, whose "other" column follows
-        each vocabulary. ValueError when em_n0 is not their total width."""
-        spec, offset = [], 0
-        for flag, vocab, field in zip(self.cfg.feature_flags, (std_elements, std_resnames, std_names),
-                                      ("element", "resname", "name")):
-            if flag:
-                spec.append((vocab, field, offset))
-                offset += len(vocab) + 1
-        if self.cfg.em_n0 != offset:
-            raise ValueError(f"integer codes of the flagged vocabularies need em_n0 == {offset}, "
-                             f"got {self.cfg.em_n0}")
-        return spec
-
-    def _encode_record(self, s):
-        """Structure record -> host arrays (X [n, 3] float32, codes [n, V]
-        int32: a column per vocabulary, offset into the one-hot's columns,
-        residue codes [n] int32, n_res); the device expands both codes
-        (`models.pesto.onehot_codes`)."""
-        X = np.asarray(s["xyz"], dtype=np.float32)
-        spec = self._compact_spec()
-        codes = np.empty((X.shape[0], len(spec)), np.int32)
-        for k, (vocab, field, offset) in enumerate(spec):
-            codes[:, k] = vocab_codes(s[field], vocab) + offset
-        _, rid = np.unique(np.asarray(s["resid"]), return_inverse=True)
-        return X, codes, rid.astype(np.int32), int(rid.max()) + 1
-
-    @staticmethod
-    def _pad_record(rec):
-        """An encoded record padded to its buckets, as numpy: (X [na, 3],
-        codes [na, V], residue codes [na], atom mask [na], n_res, nr), sink
-        and padding rows code 0 as the BatchEncoder fills them."""
-        X, codes, rid, n_res = rec
-        n = X.shape[0]
-        na = pick_bucket(n + 1, batching.ATOM_BUCKETS)
-        nr = pick_bucket(max(n_res, 1), batching.RES_BUCKETS)
-        Xp = np.zeros((na, 3), np.float32)
-        qp = np.zeros((na, codes.shape[1]), np.int32)
-        Mp = np.zeros((na,), np.int32)
-        am = np.zeros((na,), np.float32)
-        Xp[1 : n + 1], qp[1 : n + 1], Mp[1 : n + 1], am[1 : n + 1] = X, codes, rid, 1.0
-        return Xp, qp, Mp, am, n_res, nr
+    def _launches(self) -> dict:
+        """The launch counters that a chunk's `.launch` span diffs: the
+        kNN and edge kernels, and the dimer's cross attention."""
+        n = {"knn_launches": _knn.knn_kernel.launches, "edge_launches": _edge.edge_attention_kernel.launches}
+        if self.dimer:
+            n["cross_launches"] = _cross.cross_attention_kernel.launches
+        return n
 
     def warmup(self, buckets=None, batch_sizes=(1,)) -> None:
         """Build the CUDA libraries (on a card) and run one chunk per
@@ -282,7 +255,7 @@ class Predictor:
         if buckets is None:
             buckets = [(na, pick_bucket(max(na // 8, batching.RES_BUCKETS[0]), batching.RES_BUCKETS))
                        for na in batching.ATOM_BUCKETS if na <= 32768]
-        n_vocab = len(self._compact_spec())
+        n_vocab = len(batching.compact_spec(self.cfg))
         replicas = self._replicas if self.mesh is not None else {self.device: self.model}
         for na, nr in buckets:
             X, q, M = random_structure_arrays(n_atoms=min(na - 1, 64), n_res=min(nr, 8),
@@ -295,7 +268,7 @@ class Predictor:
                     # the [b, na, V] feature codes and [b, na] residue codes of predict_batch
                     codes = torch.zeros((b, na, n_vocab), dtype=torch.int32, device=dev)
                     rid = torch.zeros((b, na), dtype=torch.int32, device=dev)
-                    self._knn_forward_sigmoid(batch.X, codes, rid, batch.atom_mask, nr=nr).cpu()
+                    self._forward((batch.X, codes, rid, batch.atom_mask, nr))[0].cpu()
 
     @contextlib.contextmanager
     def _encoder(self, num_threads, need_sets):
@@ -320,14 +293,14 @@ class Predictor:
 
     def _encode_records(self, call_name, records, num_threads, cid):
         """The `<call_name>.record_encode` stage: each record to host arrays
-        in a thread pool (`_encode_record`), None and a line on stderr for
-        one that fails."""
+        in a thread pool (`batching.encode_record`), None and a line on
+        stderr for one that fails."""
 
         def encode_record(arg):
             i, s = arg
             with tracing.span(f"{call_name}.encode_record", parent=record_stage, call=cid, structure=i):
                 try:
-                    return self._encode_record(s)
+                    return batching.encode_record(s, self.cfg)
                 except Exception as e:  # noqa: BLE001 — one bad record gives None
                     print(f"EncodeError: structure {i}: {type(e).__name__}: {e}", file=sys.stderr)
                     return None
@@ -338,13 +311,6 @@ class Predictor:
                 recs = list(pool.map(encode_record, enumerate(records)))
         self._stages.count("batch_calls")
         return recs
-
-    @staticmethod
-    def _bucket(rec):
-        """(atom bucket, residue bucket) of an encoded record; ValueError
-        past the largest."""
-        return (pick_bucket(rec[0].shape[0] + 1, batching.ATOM_BUCKETS),
-                pick_bucket(max(rec[3], 1), batching.RES_BUCKETS))
 
     @staticmethod
     def _to_host(*probs):
@@ -376,6 +342,108 @@ class Predictor:
         while pending:
             collect(*pending.popleft())
 
+    def _schedule(self, call_name, records, n_out, plan, n_sides, atoms_per_call, num_threads,
+                  pipeline_depth, **call_attrs) -> list:
+        """The stages of the batched call `call_name` over `records`, under
+        its span (whose attributes are `call_attrs`). The records encode in
+        the thread pool; `plan(recs)` then yields (slot, name, item): an
+        item is a tuple of `n_sides` record indices, one per side of
+        `_forward`, its answer goes to out[slot], and a SizeError names it.
+        Items are keyed by their sides' (atom, residue) buckets, and the
+        items of a key, in first-seen order, go in chunks of at most
+        `atoms_per_call` padded atoms a side (at least one item); over a
+        mesh, per device, and a chunk splits into equal parts, one per data
+        device. Each part's sides go through the BatchEncoder and
+        `_forward`, the probabilities back to pinned host memory, with up
+        to `pipeline_depth` chunks in flight. Returns out [n_out]: each
+        slot's (item, its sides' probabilities [n_res, C] in the item's
+        order), or None."""
+        devices = self._data_devices if self.mesh is not None else [self.device]
+        ndev = len(devices)
+        # an encode a side of each part of each chunk in flight and the next
+        need_sets = max(2, (int(pipeline_depth) + 1) * ndev * n_sides)
+        # grad mode is per thread
+        with self._encoder(num_threads, need_sets) as encoder, torch.no_grad(), \
+                tracing.span(call_name, **call_attrs) as call:
+            cid = call.span_id if call is not None else None
+            recs = self._encode_records(call_name, records, num_threads, cid)
+            groups = {}
+            with tracing.span(f"{call_name}.plan", call=cid):
+                for slot, name, item in plan(recs):
+                    try:
+                        key = tuple(batching.record_buckets(recs[r]) for r in item)
+                    except ValueError as e:
+                        print(f"SizeError: {name}: {e}", file=sys.stderr)
+                        continue
+                    groups.setdefault(key, []).append((slot, item))
+            out = [None] * n_out
+            side_names = [""] if n_sides == 1 else ["_a", "_b"]  # na, nr or na_a, nr_a, na_b, nr_b
+
+            def submit_part(part, key, dev):
+                """Encode and launch one chunk's part on `dev`; the
+                probabilities come back to pinned host memory
+                asynchronously, behind an event. Its spans' attributes: each
+                side's buckets, B, the real and padded atoms of all sides,
+                for pairs the real pairs' sum of n_a * n_b, the feature
+                codes' columns (`codes`: V), the bytes copied to the card;
+                the launches of `_launches`."""
+                with tracing.span(f"{call_name}.batch_encode", sums=self._stages, key="batch_encode",
+                                  call=cid) as sp:
+                    # on a card a copy out of the encoder's pinned buffers,
+                    # which the encoder refills only after the copy's event
+                    sides = []
+                    for k, (na, nr) in enumerate(key):
+                        b = encoder.encode([recs[item[k]] for _, item in part], na=na, nr=nr, device=dev)
+                        sides.append((b.X, b.q, b.M, b.atom_mask, nr))
+                    if sp is not None:
+                        n = [[int(recs[item[k]][0].shape[0]) for _, item in part] for k in range(n_sides)]
+                        for x, (na, nr) in zip(side_names, key):
+                            sp.attrs.update({f"na{x}": na, f"nr{x}": nr})
+                        sp.attrs.update(B=len(part), real_atoms=sum(map(sum, n)),
+                                        padded_atoms=len(part) * sum(na for na, _ in key))
+                        if n_sides == 2:
+                            sp.attrs["real_pairs"] = sum(a * b for a, b in zip(*n))
+                        sent = [t for side in sides for t in side[:4]] if sides[0][0].is_cuda else []
+                        sp.attrs.update(codes=int(sides[0][1].shape[-1]), h2d_bytes=sum(t.nbytes for t in sent))
+                with tracing.span(f"{call_name}.launch", call=cid) as sp:
+                    if sp is not None:
+                        before = self._launches()
+                    result = self._to_host(*self._forward(*sides))
+                    if sp is not None:
+                        sp.attrs.update({k: v - before[k] for k, v in self._launches().items()})
+                return result
+
+            def submit(chunk):
+                """One chunk, as len(devices) equal parts, each on its device
+                with no exchange between them. Over a mesh, a chunk is padded
+                to a multiple of the devices by repeating its first item,
+                whose copies are never collected."""
+                group, key = chunk
+                dispatch = group + [group[0]] * (-len(group) % ndev)
+                per = len(dispatch) // ndev
+                results = []
+                for k, dev in enumerate(devices):
+                    with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                        results.append(submit_part(dispatch[k * per : (k + 1) * per], key, dev))
+                return results
+
+            def collect(chunk, results):
+                with tracing.span(f"{call_name}.collect", sums=self._stages, key="device_wait", call=cid):
+                    for _, ready in results:
+                        if ready is not None:
+                            ready.synchronize()
+                    probs = [np.concatenate([hosts[k].numpy() for hosts, _ in results]) for k in range(n_sides)]
+                for j, (slot, item) in enumerate(chunk[0]):
+                    out[slot] = item, tuple(p[j, : recs[r][3]] for p, r in zip(probs, item))
+
+            chunks = []
+            for key, group in groups.items():
+                bmax = max(ndev, atoms_per_call * ndev // max(na for na, _ in key))
+                bmax -= bmax % ndev
+                chunks += [(group[k : k + bmax], key) for k in range(0, len(group), bmax)]
+            self._pipeline(chunks, submit, collect, pipeline_depth)
+            return out
+
     def predict_batch(self, structures: list, atoms_per_call: int = 32768,
                       num_threads: int = 8, pipeline_depth: int = 2) -> list:
         """Cleaned structure records -> list of [n_res_i, C] probabilities,
@@ -389,107 +457,13 @@ class Predictor:
         stages are its children, each with the call's id."""
         if self.dimer:
             raise TypeError("a dimer Predictor answers predict_pairs, not predict_batch")
-        ndev = len(self._data_devices) if self.mesh is not None else 1
-        need_sets = max(2, (int(pipeline_depth) + 1) * ndev)
-        # grad mode is per thread
-        with self._encoder(num_threads, need_sets) as enc, torch.no_grad(), \
-                tracing.span("predict_batch", structures=len(structures)) as call:
-            return self._predict_batch_impl(structures, atoms_per_call, num_threads,
-                                            pipeline_depth, call, enc)
 
-    def _predict_batch_impl(self, structures, atoms_per_call, num_threads, pipeline_depth, call, encoder):
-        cid = call.span_id if call is not None else None
-        recs = self._encode_records("predict_batch", structures, num_threads, cid)
+        def plan(recs):
+            return ((i, f"structure {i}", (i,)) for i, rec in enumerate(recs) if rec is not None)
 
-        buckets = {}
-        with tracing.span("predict_batch.plan", call=cid):
-            for i, rec in enumerate(recs):
-                if rec is None:
-                    continue
-                try:
-                    key = self._bucket(rec)
-                except ValueError as e:
-                    print(f"SizeError: structure {i}: {e}", file=sys.stderr)
-                    continue
-                buckets.setdefault(key, []).append(i)
-        out = [None] * len(structures)
-
-        devices = self._data_devices if self.mesh is not None else [self.device]
-        ndev = len(devices)
-
-        def submit_part(part, na, nr, dev):
-            """Encode and launch one chunk's part on `dev`; the probabilities
-            come back to pinned host memory asynchronously, behind an
-            event. Its spans' attributes: the bucket, B, the real and padded
-            atoms, the feature codes' columns (`codes`: V) and the bytes
-            copied to the card; the kNN and edge launches."""
-            with tracing.span("predict_batch.batch_encode", sums=self._stages, key="batch_encode",
-                              call=cid) as sp:
-                # on a card a copy out of the encoder's pinned buffers, which
-                # the encoder refills only after the copy's event
-                b = encoder.encode([recs[i] for i in part], na=na, nr=nr, device=dev)
-                if sp is not None:
-                    sent = (b.X, b.q, b.M, b.atom_mask) if b.X.is_cuda else ()
-                    sp.attrs.update(na=na, nr=nr, B=len(part), padded_atoms=len(part) * na,
-                                    real_atoms=sum(int(recs[i][0].shape[0]) for i in part),
-                                    codes=int(b.q.shape[-1]), h2d_bytes=sum(t.nbytes for t in sent))
-            with tracing.span("predict_batch.launch", call=cid) as sp:
-                if sp is not None:
-                    knn0, edge0 = _knn.knn_kernel.launches, _edge.edge_attention_kernel.launches
-                probs = self._knn_forward_sigmoid(b.X, b.q, b.M, b.atom_mask, nr=nr)
-                (host,), ready = self._to_host(probs)
-                if sp is not None:
-                    sp.attrs.update(knn_launches=_knn.knn_kernel.launches - knn0,
-                                    edge_launches=_edge.edge_attention_kernel.launches - edge0)
-            return host, ready
-
-        def submit(chunk):
-            """One chunk, as len(devices) equal parts, each on its device
-            with no exchange between them. Over a mesh, a chunk is padded to
-            a multiple of the devices by repeating its first structure,
-            whose copies are never collected."""
-            group, na, nr = chunk
-            dispatch = group + [group[0]] * (-len(group) % ndev)
-            per = len(dispatch) // len(devices)
-            results = []
-            for k, dev in enumerate(devices):
-                part = dispatch[k * per : (k + 1) * per]
-                if dev.type == "cuda":
-                    with torch.cuda.device(dev):
-                        results.append(submit_part(part, na, nr, dev))
-                else:
-                    results.append(submit_part(part, na, nr, dev))
-            return results
-
-        def collect(chunk, results):
-            with tracing.span("predict_batch.collect", sums=self._stages, key="device_wait", call=cid):
-                for _, ready in results:
-                    if ready is not None:
-                        ready.synchronize()
-                probs = np.concatenate([host.numpy() for host, _ in results])
-            for j, i in enumerate(chunk[0]):
-                out[i] = probs[j, : recs[i][3]]
-
-        chunks = []
-        for (na, nr), group in buckets.items():
-            # an atom budget per device
-            bmax = max(ndev, atoms_per_call * ndev // na)
-            bmax -= bmax % ndev
-            chunks += [(group[k : k + bmax], na, nr) for k in range(0, len(group), bmax)]
-        self._pipeline(chunks, submit, collect, pipeline_depth)
-        return out
-
-    @torch.no_grad()
-    def _pair_forward_sigmoid(self, ba, bb, nr_a=None, nr_b=None):
-        """One chunk of pairs on the device: the batched kNN of each side,
-        the dimer's forward over both sides' rows and an fp32 sigmoid.
-        Returns probabilities ([B, NRa, C], [B, NRb, C]) without a host
-        sync."""
-        ids_a, _ = knn_ids(ba.X, ba.atom_mask)
-        ids_b, _ = knn_ids(bb.X, bb.atom_mask)
-        za, zb = self.model((ba.X, ids_a, ba.q, ba.M, ba.atom_mask), (bb.X, ids_b, bb.q, bb.M, bb.atom_mask),
-                            nr_a=nr_a, nr_b=nr_b)
-        return torch.sigmoid(za.to(torch.float32)), torch.sigmoid(zb.to(torch.float32))
+        out = self._schedule("predict_batch", structures, len(structures), plan, 1, atoms_per_call,
+                             num_threads, pipeline_depth, structures=len(structures))
+        return [o if o is None else o[1][0] for o in out]
 
     def predict_pairs(self, pairs: list, atoms_per_call: int = 32768, num_threads: int = 8,
                       pipeline_depth: int = 2) -> list:
@@ -510,88 +484,25 @@ class Predictor:
         stages of predict_batch's under the same names."""
         if not self.dimer:
             raise TypeError("predict_pairs needs a dimer Predictor (a CrossPestoModel state dict)")
-        need_sets = max(2, 2 * (int(pipeline_depth) + 1))  # two encodes a chunk, maybe of one shape
-        with self._encoder(num_threads, need_sets) as enc, torch.no_grad(), \
-                tracing.span("predict_pairs", pairs=len(pairs)) as call:
-            return self._predict_pairs_impl(pairs, atoms_per_call, num_threads, pipeline_depth, call, enc)
-
-    def _predict_pairs_impl(self, pairs, atoms_per_call, num_threads, pipeline_depth, call, encoder):
-        cid = call.span_id if call is not None else None
         index, distinct = {}, []
         for pair in pairs:
             for s in pair:
                 if id(s) not in index:
                     index[id(s)] = len(distinct)
                     distinct.append(s)
-        recs = self._encode_records("predict_pairs", distinct, num_threads, cid)
+        sides = [(index[id(a)], index[id(b)]) for a, b in pairs]
 
-        groups = {}
-        with tracing.span("predict_pairs.plan", call=cid):
-            for i, (a, b) in enumerate(pairs):
-                sa, sb = index[id(a)], index[id(b)]
-                if recs[sa] is None or recs[sb] is None:
+        def plan(recs):
+            for i, item in enumerate(sides):
+                if recs[item[0]] is None or recs[item[1]] is None:
                     continue
-                swap = recs[sb][0].shape[0] > recs[sa][0].shape[0]
-                if swap:
-                    sa, sb = sb, sa
-                try:
-                    key = self._bucket(recs[sa]) + self._bucket(recs[sb])
-                except ValueError as e:
-                    print(f"SizeError: pair {i}: {e}", file=sys.stderr)
-                    continue
-                groups.setdefault(key, []).append((i, sa, sb, swap))
-        out = [None] * len(pairs)
-        dev = self.device
+                if recs[item[1]][0].shape[0] > recs[item[0]][0].shape[0]:
+                    item = item[::-1]  # the larger side first
+                yield i, f"pair {i}", item
 
-        def submit(chunk):
-            """Encode and launch one chunk of pairs; its spans' attributes:
-            both sides' buckets, B, the real and padded atoms of both sides,
-            the real pairs' sum of n_a * n_b, the feature codes' columns, the
-            bytes copied to the card, and the kNN, edge and cross-attention
-            launches."""
-            group, na_a, nr_a, na_b, nr_b = chunk
-            with tracing.span("predict_pairs.batch_encode", sums=self._stages, key="batch_encode",
-                              call=cid) as sp:
-                side_a, side_b = [recs[x[1]] for x in group], [recs[x[2]] for x in group]
-                ba = encoder.encode(side_a, na=na_a, nr=nr_a, device=dev)
-                bb = encoder.encode(side_b, na=na_b, nr=nr_b, device=dev)
-                if sp is not None:
-                    n_a = [int(r[0].shape[0]) for r in side_a]
-                    n_b = [int(r[0].shape[0]) for r in side_b]
-                    sent = (ba.X, ba.q, ba.M, ba.atom_mask, bb.X, bb.q, bb.M, bb.atom_mask) if ba.X.is_cuda else ()
-                    sp.attrs.update(na_a=na_a, na_b=na_b, nr_a=nr_a, nr_b=nr_b, B=len(group),
-                                    real_atoms=sum(n_a) + sum(n_b), padded_atoms=len(group) * (na_a + na_b),
-                                    real_pairs=sum(x * y for x, y in zip(n_a, n_b)), codes=int(ba.q.shape[-1]),
-                                    h2d_bytes=sum(t.nbytes for t in sent))
-            with tracing.span("predict_pairs.launch", call=cid) as sp:
-                if sp is not None:
-                    before = (_knn.knn_kernel.launches, _edge.edge_attention_kernel.launches,
-                              _cross.cross_attention_kernel.launches)
-                probs = self._pair_forward_sigmoid(ba, bb, nr_a, nr_b)
-                result = self._to_host(*probs)
-                if sp is not None:
-                    after = (_knn.knn_kernel.launches, _edge.edge_attention_kernel.launches,
-                             _cross.cross_attention_kernel.launches)
-                    sp.attrs.update(zip(("knn_launches", "edge_launches", "cross_launches"),
-                                        (y - x for x, y in zip(before, after))))
-            return result
-
-        def collect(chunk, result):
-            (host_a, host_b), ready = result
-            with tracing.span("predict_pairs.collect", sums=self._stages, key="device_wait", call=cid):
-                if ready is not None:
-                    ready.synchronize()
-                pa, pb = host_a.numpy().copy(), host_b.numpy().copy()
-            for j, (i, sa, sb, swap) in enumerate(chunk[0]):
-                a, b = pa[j, : recs[sa][3]], pb[j, : recs[sb][3]]
-                out[i] = (b, a) if swap else (a, b)
-
-        chunks = []
-        for key, group in groups.items():
-            bmax = max(1, atoms_per_call // max(key[0], key[2]))  # the budget binds each side
-            chunks += [(group[k : k + bmax], *key) for k in range(0, len(group), bmax)]
-        self._pipeline(chunks, submit, collect, pipeline_depth)
-        return out
+        out = self._schedule("predict_pairs", distinct, len(pairs), plan, 2, atoms_per_call,
+                             num_threads, pipeline_depth, pairs=len(pairs))
+        return [o if o is None else o[1] if o[0] == want else o[1][::-1] for o, want in zip(out, sides)]
 
     def predict_pdb_files(self, paths: list, num_threads: int = 8, atoms_per_call: int = 32768,
                           pipeline_depth: int = 2) -> Tuple[list, list]:

@@ -9,13 +9,12 @@ pooled to residues, and decoded to per-residue interface logits, each
 conditioned on the partner. For training partner-specific interface
 predictors; no reference weights exist for it.
 
-One pair per call ([NA, ...] per side), as in the JAX package: each layer
-runs the edge attention once per structure. A batch of pairs ([B, NA, ...]
-per side, the sides in their own buckets) flattens both sides' rows into
-one table: each layer then runs the edge attention once over every row
-(the geometric update is shared by both sides, so this is exact per atom)
-and the cross attention once for both directions of every pair
-(`Predictor.predict_pairs`'s path).
+Each side is a batch of padded structures ([B, NA, ...], the sides in
+their own buckets), or one structure ([NA, ...]), which runs as a batch of
+one pair. Both sides' rows lie in one table: each layer runs the edge
+attention once over every row (the geometric update is shared by both
+sides, so this is exact per atom) and the cross attention once for both
+directions of every pair (`Predictor.predict_pairs`'s path).
 """
 
 import torch
@@ -23,7 +22,7 @@ from torch import nn
 
 from .config import PestoConfig
 from .extras import CrossStateUpdateLayer
-from .pesto import MLP3, StatePool, embed_batch, safe_norm, unpack_state_features
+from .pesto import MLP3, StatePool, embed_batch, safe_norm
 
 
 class CrossPestoModel(nn.Module):
@@ -41,36 +40,18 @@ class CrossPestoModel(nn.Module):
         dm = (cfg.dm_n2,) if cfg.dm_single else (cfg.dm_n1, cfg.dm_n1, cfg.dm_n2)
         self.dm = MLP3(2 * cfg.spl_n1, dm)
 
-    def _embed(self, X, ids_topk, q0, M, atom_mask):
-        dtype = self.em[0].weight.dtype
-        am = atom_mask.to(torch.float32)
-        X = X.to(torch.float32)
-        n_real = am.sum().to(torch.int64)
-        D_nn, R_nn = unpack_state_features(X[None], ids_topk[None], am[None], n_real[None])
-        q = self.em(q0.to(dtype)) * am.to(dtype)[:, None]
-        p = torch.zeros((X.shape[0], 3, self.cfg.em_n1), dtype=dtype, device=X.device)
-        return [q, p, ids_topk.to(torch.int32), D_nn[0].to(dtype), R_nn[0].to(dtype), am], M
-
     def forward(self, A, B, nr_a=None, nr_b=None):
         """A/B: (X, ids_topk, q0, M, atom_mask) per side, padded with sink
-        row 0 and real atoms at rows 1..n. One pair: X [NA, 3], ids_topk
-        [NA, K], q0 [NA, F], M [NA, NR], atom_mask [NA]; returns (zA [NRa, C],
-        zB [NRb, C]). A batch of pairs: each side [B, NA_side, ...], q0 and
-        M dense or integer codes as `PestoModel.forward` takes them (nr_a,
-        nr_b for compact M); returns (zA [B, NRa, C], zB [B, NRb, C])."""
+        row 0 and real atoms at rows 1..n. A batch of pairs: each side [B,
+        NA_side, ...], q0 and M dense or integer codes as `PestoModel.
+        forward` takes them (nr_a, nr_b for compact M); returns (zA [B, NRa,
+        C], zB [B, NRb, C]). One pair: X [NA, 3], ids_topk [NA, K], q0 [NA,
+        F], M [NA, NR], atom_mask [NA], run as a batch of one; returns (zA
+        [NRa, C], zB [NRb, C])."""
         if A[0].dim() == 3:
             return self._pairs(A, B, nr_a, nr_b)
-        Z0, M0 = self._embed(*A)
-        Z1, M1 = self._embed(*B)
-        for layer in self.csul:
-            (q0, p0), (q1, p1) = layer(tuple(Z0), tuple(Z1))
-            Z0 = [q0, p0, *Z0[2:]]
-            Z1 = [q1, p1, *Z1[2:]]
-        out = []
-        for (q, p, *_), M in ((Z0, M0), (Z1, M1)):
-            qr, pr = self.spl(q[None], p[None], M[None])
-            out.append(self.dm(torch.cat([qr[0], safe_norm(pr[0], -2)], dim=-1)))
-        return out[0], out[1]
+        zA, zB = self._pairs(tuple(t[None] for t in A), tuple(t[None] for t in B), nr_a, nr_b)
+        return zA[0], zB[0]
 
     def _pairs(self, A, B, nr_a, nr_b):
         """The batched forward: side A's rows, then side B's, in one table."""

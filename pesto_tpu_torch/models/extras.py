@@ -62,20 +62,17 @@ class CrossStateUpdateLayer(nn.Module):
         self.cpm = MLP3(S + cNh * S, (S, S, S))
 
     def forward(self, Z0, Z1):
-        """Z0/Z1: (q, p, ids_topk, D_nn, R_nn, atom_mask) per structure.
-        Returns ((q0', p0'), (q1', p1')). Each structure's edge attention
-        runs on its own; both directions of the cross attention run as one
-        op over the two structures' rows."""
-        qa0, pz0 = self.sul(*Z0)
-        qa1, pz1 = self.sul(*Z1)
-        n0, n1 = qa0.shape[0], qa1.shape[0]
-        am = torch.cat([Z0[5], Z1[5]])
-        dev = qa0.device
-        counts = torch.stack([Z0[5].sum(), Z1[5].sum()]).to(torch.int32)
-        segments = (torch.tensor([1, n0 + 1], dtype=torch.int32, device=dev), counts,
-                    torch.tensor([1, 0], dtype=torch.int32, device=dev), max(n0, n1) - 1)
-        qz = self.cross(torch.cat([qa0, qa1]), torch.cat([pz0, pz1]), am, segments)
-        return (qz[:n0], pz0), (qz[n0:], pz1)
+        """Z0/Z1: (q, p, ids_topk, D_nn, R_nn, atom_mask) per structure, the
+        JAX package's entry. Returns ((q0', p0'), (q1', p1')): `pairs` over
+        one table of both structures' rows, Z1's ids shifted past Z0's."""
+        n0 = Z0[0].shape[0]
+        q, p, ids, D, R, am = (torch.cat([a, b]) for a, b in zip(Z0, (*Z1[:2], Z1[2] + n0, *Z1[3:])))
+        dev = q.device
+        segments = (torch.tensor([1, n0 + 1], dtype=torch.int32, device=dev),
+                    torch.stack([Z0[5].sum(), Z1[5].sum()]).to(torch.int32),
+                    torch.tensor([1, 0], dtype=torch.int32, device=dev), max(n0, Z1[0].shape[0]) - 1)
+        q, p = self.pairs(q, p, ids, D, R, am, segments)
+        return (q[:n0], p[:n0]), (q[n0:], p[n0:])
 
     def pairs(self, q, p, ids_topk, D_nn, R_nn, atom_mask, segments):
         """One layer over a table of both sides' rows of a batch of pairs

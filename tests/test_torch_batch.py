@@ -225,16 +225,17 @@ def test_predict_batch_deep_pipeline_buffer_rotation(pred, monkeypatch):
     recs = [random_structure_record(n_atoms=60 + 3 * i, n_res=8, seed=i) for i in range(8)]
     want = [pred.predict_structure(r) for r in recs]
     launched = []
-    chunk_program = pred._knn_forward_sigmoid
+    chunk_program = pred._forward
 
-    def checked(X, q, M, am, nr=None):
+    def checked(*sides):
+        ((X, q, M, am, nr),) = sides
         for inputs, copies in launched[-depth:]:  # possibly still in flight
             assert all(torch.equal(a, b) for a, b in zip(inputs, copies)), \
                 "a chunk in flight had its buffers overwritten"
         launched.append(((X, q, M, am), tuple(t.clone() for t in (X, q, M, am))))
-        return chunk_program(X, q, M, am, nr=nr)
+        return chunk_program(*sides)
 
-    monkeypatch.setattr(pred, "_knn_forward_sigmoid", checked)
+    monkeypatch.setattr(pred, "_forward", checked)
     got = pred.predict_batch(recs, atoms_per_call=64, pipeline_depth=depth)
     assert len(launched) == len(recs)
     enc = pred._enc_pool.get_nowait()  # checked back into the idle pool

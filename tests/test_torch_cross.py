@@ -150,7 +150,7 @@ def test_cross_model_matches_jax(weights, pair, monkeypatch, record_property):
     launches = edge_attention.edge_attention_kernel.launches
     with torch.no_grad():
         tA, tB = model(_torch(A), _torch(B))
-    assert calls == [8, 8, 16, 16]  # each layer's edge attention once per structure
+    assert calls == [8, 16]  # each layer's edge attention once, over both structures' rows
     assert edge_attention.edge_attention_kernel.launches == launches  # the plain version on the CPU
     assert tA.shape == (32, cfg.dm_n2) and tB.shape == (32, cfg.dm_n2)
     np.testing.assert_allclose(tA.numpy(), np.asarray(zA), atol=LOGIT_ATOL)
@@ -162,6 +162,56 @@ def test_cross_model_matches_jax(weights, pair, monkeypatch, record_property):
     np.testing.assert_allclose(sB.numpy(), tB.numpy(), atol=1e-6)
     record_property("max_abs_dev", float(max(np.abs(tA.numpy() - np.asarray(zA)).max(),
                                              np.abs(tB.numpy() - np.asarray(zB)).max())))
+
+
+def _counting_edge(monkeypatch):
+    """Each fused_edge_attention call's neighbour ids' shape [rows, nn]."""
+    calls = []
+
+    def counting(*args, **kw):
+        calls.append(tuple(args[1].shape))
+        return edge_attention.fused_edge_attention(*args, **kw)
+
+    monkeypatch.setattr(port_pesto, "fused_edge_attention", counting)
+    return calls
+
+
+def test_the_one_pair_call_is_the_batched_call_on_one_pair(weights, pair, monkeypatch):
+    """[NA, ...] sides give, at tolerance 0, the batched call's answer on a
+    batch of that one pair, with one edge attention a layer over both
+    structures' rows."""
+    *_, model = weights
+    A, B = (_torch(S) for S in pair)
+    calls = _counting_edge(monkeypatch)
+    with torch.no_grad():
+        one = model(A, B)
+    rows = len(A[0]) + len(B[0])
+    assert calls == [(rows, 8), (rows, 16)]
+    with torch.no_grad():
+        batch = model(tuple(t[None] for t in A), tuple(t[None] for t in B))
+    for o, b in zip(one, batch):
+        assert o.shape == b.shape[1:] and torch.equal(o, b[0])
+
+
+def test_the_cross_layer_entry_runs_one_edge_attention(weights, pair, monkeypatch):
+    """The layer's JAX-shaped entry (two structures' states) is `pairs` over
+    one table of both structures' rows: one edge attention, and the same
+    rows at tolerance 0."""
+    *_, model = weights
+    layer = model.csul[1]
+    Z0, Z1 = (_torch(_layer_inputs(S, seed)) for S, seed in zip(pair, (3, 4)))
+    n0 = len(Z0[0])
+    calls = _counting_edge(monkeypatch)
+    with torch.no_grad():
+        (q0, p0), (q1, p1) = layer(Z0, Z1)
+    assert calls == [(n0 + len(Z1[0]), 16)]
+    table = [torch.cat([a, b]) for a, b in zip(Z0, (*Z1[:2], Z1[2] + n0, *Z1[3:]))]
+    segments = (torch.tensor([1, n0 + 1], dtype=torch.int32),
+                torch.tensor([int(Z0[5].sum()), int(Z1[5].sum())], dtype=torch.int32),
+                torch.tensor([1, 0], dtype=torch.int32), n0 - 1)
+    with torch.no_grad():
+        q, p = layer.pairs(*table, segments)
+    assert torch.equal(torch.cat([q0, q1]), q) and torch.equal(torch.cat([p0, p1]), p)
 
 
 @pytest.fixture(scope="module")

@@ -16,7 +16,7 @@ from h100bench import common, structures
 from h100bench.reference import cross as rc
 from h100bench.reference import pesto as ref
 from pesto_tpu_torch import infer
-from pesto_tpu_torch.batching import pad_structure_arrays, stack_batch
+from pesto_tpu_torch.batching import RES_BUCKETS, pad_structure_arrays, stack_batch
 from pesto_tpu_torch.infer import Predictor
 from pesto_tpu_torch.models import CrossPestoModel, extras
 from pesto_tpu_torch.models import pesto as port_pesto
@@ -210,6 +210,21 @@ def test_predict_pairs_matches_the_reference_in_order(cfg, pred, reference, recs
     assert np.abs(out[0][0] - out[1][1]).max() > 1e-4
     with pytest.raises(TypeError, match="predict_pairs"):
         pred.predict_batch([recs[0]])
+
+
+def test_predict_pairs_gives_none_for_a_side_past_the_largest_bucket(pred, recs):
+    """A record over the largest residue bucket, on either side and larger
+    than its partner, gives its pair None; the pair beside it is answered
+    as alone."""
+    n = RES_BUCKETS[-1] + 16
+    big = {k: np.resize(v, (n,) + v.shape[1:]) for k, v in recs[0].items()}
+    big["resid"] = np.arange(1, n + 1)
+    pairs = [(recs[2], big), (recs[0], recs[1]), (big, recs[3])]
+    out = pred.predict_pairs(pairs, atoms_per_call=700)
+    assert out[0] is None and out[2] is None
+    (alone,) = pred.predict_pairs([pairs[1]], atoms_per_call=700)
+    for got, want in zip(out[1], alone):
+        assert np.array_equal(got, want)
 
 
 def test_predict_pairs_spans_carry_their_attributes(pred, recs, monkeypatch):

@@ -5,6 +5,7 @@ synchronous save, `AsyncCheckpointer.save(step=)`, `.errors` and
 stats copy the Predictor's stage timers under its lock, and the idle pool
 of batch encoders is capped."""
 
+import contextlib
 import os
 import threading
 
@@ -168,15 +169,17 @@ def test_idle_encoder_pool_is_capped_after_concurrent_callers(pred, monkeypatch)
     while not pred._enc_pool.empty():
         pred._enc_pool.get_nowait()
     barrier = threading.Barrier(n, timeout=60)
-    impl = pred._predict_batch_impl
+    checkout = pred._encoder
     held = []
 
+    @contextlib.contextmanager
     def together(*args):
-        held.append(args[-1])
-        barrier.wait()
-        return impl(*args)
+        with checkout(*args) as enc:
+            held.append(enc)
+            barrier.wait()
+            yield enc
 
-    monkeypatch.setattr(pred, "_predict_batch_impl", together)
+    monkeypatch.setattr(pred, "_encoder", together)
     recs = [random_structure_record(n_atoms=80 + 10 * i, n_res=12, seed=40 + i) for i in range(2)]
     out = [None] * n
 
@@ -192,7 +195,7 @@ def test_idle_encoder_pool_is_capped_after_concurrent_callers(pred, monkeypatch)
     assert len({id(e) for e in held}) == n
     assert pred._enc_pool.qsize() == Predictor.ENC_POOL_IDLE
     assert len(closed) == n - Predictor.ENC_POOL_IDLE
-    monkeypatch.setattr(pred, "_predict_batch_impl", impl)
+    monkeypatch.setattr(pred, "_encoder", checkout)
     want = pred.predict_batch(recs, num_threads=1)
     for got in out:
         for g, w in zip(got, want):

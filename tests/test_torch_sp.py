@@ -187,13 +187,13 @@ def test_dp_predict_batch_matches_one_device_and_jax_mesh(model, monkeypatch, re
     mesh_pred = Predictor(cfg, sd, mesh=_cpu_mesh(2, 1))
     assert mesh_pred.device == torch.device("cpu")
     parts = []
-    run = mesh_pred._knn_forward_sigmoid
+    run = mesh_pred._forward
 
-    def counting(X, *a, **kw):
-        parts.append(X.shape[0])
-        return run(X, *a, **kw)
+    def counting(*sides):
+        parts.append(sides[0][0].shape[0])
+        return run(*sides)
 
-    monkeypatch.setattr(mesh_pred, "_knn_forward_sigmoid", counting)
+    monkeypatch.setattr(mesh_pred, "_forward", counting)
     comm.reset()
     got = mesh_pred.predict_batch(records)
     assert comm.total() == 0

@@ -8,6 +8,8 @@ buffer set of their own; `onehot_codes` expands them into exactly the dense
 features; and predict_batch's probabilities equal, bit for bit, those of the
 same chunks encoded densely and run through the same model."""
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -15,12 +17,15 @@ import torch
 from pesto_tpu_torch import batching
 from pesto_tpu_torch.encoding import encode_features, encode_structure, std_elements, std_names, std_resnames
 from pesto_tpu_torch.infer import Predictor
+from pesto_tpu_torch.io import read_structure
 from pesto_tpu_torch.models import PestoModel, get_config
 from pesto_tpu_torch.models.pesto import onehot_codes
+from pesto_tpu_torch.structure import concatenate_chains, preprocess_structure
 from pesto_tpu_torch.synthetic import random_structure_record
 from pesto_tpu_torch.utils import tracing
 
 SIZES = (40, 300, 700, 650, 120, 900, 260)  # three atom buckets, chunks of one and of two
+GOLDEN = str(pathlib.Path(__file__).resolve().parent / "goldens" / "1OL5_A_i0.pdb")
 
 
 def _predictor(variant):
@@ -64,7 +69,7 @@ def _dense_item(pred, rec):
 def test_record_codes_expand_to_the_dense_one_hot(pred):
     V = sum(pred.cfg.feature_flags)
     for rec in _records():
-        X, codes, rid, n_res = pred._encode_record(rec)
+        X, codes, rid, n_res = batching.encode_record(rec, pred.cfg)
         Xd, q, M = _dense_item(pred, rec)
         assert codes.shape == (len(X), V) and codes.dtype == rid.dtype == np.int32
         np.testing.assert_array_equal(X, Xd)
@@ -73,7 +78,7 @@ def test_record_codes_expand_to_the_dense_one_hot(pred):
         np.testing.assert_array_equal(onehot_codes(torch.from_numpy(rid)[None], n_res)[0].numpy(), M)
     # each unknown name goes to its vocabulary's "other" column
     other = np.cumsum([len(v) + 1 for v in (std_elements, std_resnames, std_names)]) - 1
-    codes = pred._encode_record(_records()[0])[1]
+    codes = batching.encode_record(_records()[0], pred.cfg)[1]
     assert [codes[1 + k, k] for k in range(V)] == list(other[:V])
 
 
@@ -99,7 +104,7 @@ def test_predict_batch_codes_equal_the_dense_path(pred, monkeypatch):
         for idx, na, nr in chunks:
             b = dense.encode([_dense_item(pred, recs[i]) for i in idx], na=na, nr=nr)
             assert b.q.dtype == np.float32 and b.q.shape == (len(idx), na, pred.cfg.em_n0)
-            probs = pred._knn_forward_sigmoid(*(torch.from_numpy(t) for t in (b.X, b.q, b.M, b.atom_mask)))
+            (probs,) = pred._forward((*(torch.from_numpy(t) for t in (b.X, b.q, b.M, b.atom_mask)), None))
             for j, i in enumerate(idx):
                 want = probs[j].numpy()[: len(np.unique(recs[i]["resid"]))]
                 assert got[i].shape == want.shape and np.array_equal(got[i], want)
@@ -116,8 +121,8 @@ def test_batch_encoder_fills_codes_of_each_vocabulary_count():
     recs = [_record(n, seed=i) for i, n in enumerate((40, 300, 700, 650))]
     enc = batching.BatchEncoder(2)
     try:
-        b3 = enc.encode([p3._encode_record(r) for r in recs], na=1024, nr=128)
-        b1 = enc.encode([p1._encode_record(r) for r in recs], na=1024, nr=128)
+        b3 = enc.encode([batching.encode_record(r, p3.cfg) for r in recs], na=1024, nr=128)
+        b1 = enc.encode([batching.encode_record(r, p1.cfg) for r in recs], na=1024, nr=128)
         bd = enc.encode([_dense_item(p3, r) for r in recs], na=1024, nr=128)
         assert b3.q.shape == (4, 1024, 3) and b1.q.shape == (4, 1024, 1)
         assert b3.q.dtype == b1.q.dtype == b3.M.dtype == np.int32 and b3.M.shape == (4, 1024)
@@ -141,3 +146,33 @@ def test_batch_encode_span_counts_the_codes(pred):
     assert all(o is not None for o in out)
     chunks = [s for s in tracing.take().spans if s.name == "predict_batch.batch_encode"]
     assert chunks and {s.attrs["codes"] for s in chunks} == {sum(pred.cfg.feature_flags)}
+
+
+def test_predict_structure_codes_equal_the_dense_inputs(pred):
+    """predict_structure (the record's codes padded by `batching.pad_record`)
+    gives, at tolerance 0, the probabilities of the dense one-hot and
+    membership of `encode_and_pad` through the same Predictor."""
+    rec = concatenate_chains(preprocess_structure(read_structure(GOLDEN)))
+    ps = batching.encode_and_pad(rec, feature_flags=pred.cfg.feature_flags, device="cpu")
+    n_res = int(np.sum(ps.res_mask))
+    want = pred.probabilities(ps)[:n_res]
+    got = pred.predict_structure(rec)
+    assert got.shape == want.shape == (n_res, pred.cfg.dm_n2)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pad_record_fills_the_batch_encoders_rows(pred):
+    """pad_record's arrays are the rows that BatchEncoder fills for the same
+    record in its buckets (`record_buckets`), sink and padding included."""
+    enc = batching.BatchEncoder(2)
+    try:
+        for rec in _records()[:4]:
+            item = batching.encode_record(rec, pred.cfg)
+            Xp, qp, Mp, am, n_res, nr = batching.pad_record(item)
+            assert (Xp.shape[0], nr) == batching.record_buckets(item) and n_res == item[3]
+            b = enc.encode([item], na=Xp.shape[0], nr=nr)
+            for name, got, want in zip("XqMa", (Xp, qp, Mp, am), (b.X[0], b.q[0], b.M[0], b.atom_mask[0])):
+                assert got.dtype == want.dtype, name
+                np.testing.assert_array_equal(got, want, err_msg=name)
+    finally:
+        enc.close()
