@@ -13,7 +13,9 @@ which never touch the card); the topology runs on the device that the
 caller names, and `to_device` moves a batch there. `BatchEncoder` fills
 reused (on a card, pinned) batch buffers for the serving path and copies
 them to the device; `encode_record` gives the integer codes of a record
-that it takes, and `pad_record` pads them alone. The one-hot gather
+that it takes (`record_sizes`, what its buckets need, joined with
+`record_codes`, the coordinates and vocabulary codes), and `pad_record`
+pads them alone. The one-hot gather
 tables of the JAX package are not ported: the edge kernel gathers its
 neighbour rows itself.
 """
@@ -164,25 +166,46 @@ def compact_spec(cfg):
     return spec
 
 
-def encode_record(s: dict, cfg):
-    """Structure record -> the host arrays `BatchEncoder` takes: (X [n, 3]
-    float32, codes [n, V] int32 of `compact_spec(cfg)`, a column per
-    vocabulary, offset into the one-hot's columns, residue codes [n]
-    int32, n_res); the device expands both codes (`models.pesto.
-    onehot_codes`)."""
+def record_sizes(s: dict):
+    """The sizing part of `encode_record`: (atoms n, residue codes [n]
+    int32, n_res), the codes `np.unique`'s inverse over resid. Enough for
+    a record's buckets (`size_buckets`) and its answer's rows; ValueError
+    for a record with no residue."""
+    _, rid = np.unique(np.asarray(s["resid"]), return_inverse=True)
+    return len(s["xyz"]), rid.astype(np.int32), int(rid.max()) + 1
+
+
+def record_codes(s: dict, cfg):
+    """The rest of `encode_record`: (X [n, 3] float32, codes [n, V] int32
+    of `compact_spec(cfg)`, a column per vocabulary, offset into the
+    one-hot's columns)."""
     X = np.asarray(s["xyz"], dtype=np.float32)
     spec = compact_spec(cfg)
     codes = np.empty((X.shape[0], len(spec)), np.int32)
     for k, (vocab, field, offset) in enumerate(spec):
         codes[:, k] = vocab_codes(s[field], vocab) + offset
-    _, rid = np.unique(np.asarray(s["resid"]), return_inverse=True)
-    return X, codes, rid.astype(np.int32), int(rid.max()) + 1
+    return X, codes
+
+
+def encode_record(s: dict, cfg):
+    """Structure record -> the host arrays `BatchEncoder` takes: (X [n, 3]
+    float32, codes [n, V] int32, residue codes [n] int32, n_res), that is
+    `record_codes` joined with `record_sizes`; the device expands both
+    codes (`models.pesto.onehot_codes`)."""
+    X, codes = record_codes(s, cfg)
+    _, rid, n_res = record_sizes(s)
+    return X, codes, rid, n_res
+
+
+def size_buckets(n_atoms: int, n_res: int):
+    """(atom bucket, residue bucket) of a record of n_atoms atoms (the sink
+    row added) and n_res residues; ValueError past the largest."""
+    return (pick_bucket(n_atoms + 1, ATOM_BUCKETS), pick_bucket(max(n_res, 1), RES_BUCKETS))
 
 
 def record_buckets(rec):
-    """(atom bucket, residue bucket) of an `encode_record` result;
-    ValueError past the largest."""
-    return (pick_bucket(rec[0].shape[0] + 1, ATOM_BUCKETS), pick_bucket(max(rec[3], 1), RES_BUCKETS))
+    """`size_buckets` of an `encode_record` result."""
+    return size_buckets(rec[0].shape[0], rec[3])
 
 
 def pad_record(rec):

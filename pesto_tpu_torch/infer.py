@@ -8,13 +8,14 @@ then on the device the kNN topology (one kernel launch), the forward (one
 edge-kernel launch per layer) and the sigmoid. Batched (`predict_batch`,
 `predict_pdb_files`, the server's path) and pairs of structures
 (`predict_pairs`, a Predictor of the dimer model) share one scheduler
-(`_schedule`): the records encode in a thread pool, the items (a record,
-or a pair's two) group by their sides' buckets into chunks under an atom
-budget, and each chunk runs the batched kNN of each side (one launch a
-side), the forward over the flattened batch (one edge launch per layer,
-and for the dimer one cross-attention launch) and the sigmoid, with up to
-`pipeline_depth` chunks in flight on the device while the host encodes
-the next one.
+(`_schedule`): the items (a record, or a pair's two) group by their
+sides' buckets, known from each record's sizes, into chunks under an atom
+budget; each chunk's records are encoded as it is submitted, on the
+caller's thread, and the chunk runs the batched kNN of each side (one
+launch a side), the forward over the flattened batch (one edge launch per
+layer, and for the dimer one cross-attention launch) and the sigmoid, with
+up to `pipeline_depth` chunks in flight on the device while the host
+encodes the next one.
 
 Several devices, from this one process (`parallel.mesh.make_mesh`):
 `Predictor(mesh=)` serves data-parallel, each chunk split across the
@@ -94,9 +95,10 @@ class Predictor:
         self._sp_lock = threading.Lock()
         # cumulative host ms inside predict_batch and its calls: the
         # always-on totals of its spans predict_batch.record_encode (the
-        # record encode pool), .batch_encode (the batch encode and copy) and
-        # .collect (the blocked readback); the stages overlap under the
-        # pipeline, so they attribute time rather than add up to it
+        # records' sizes, then each chunk's record codes), .batch_encode
+        # (the batch encode and copy) and .collect (the blocked readback);
+        # the stages overlap under the pipeline, so they attribute time
+        # rather than add up to it
         self._stages = tracing.Sums({"record_encode": 0.0, "batch_encode": 0.0,
                                      "device_wait": 0.0, "batch_calls": 0})
         self.stage_ms = self._stages.ms
@@ -291,27 +293,6 @@ class Predictor:
             except queue.Full:
                 enc.close()
 
-    def _encode_records(self, call_name, records, num_threads, cid):
-        """The `<call_name>.record_encode` stage: each record to host arrays
-        in a thread pool (`batching.encode_record`), None and a line on
-        stderr for one that fails."""
-
-        def encode_record(arg):
-            i, s = arg
-            with tracing.span(f"{call_name}.encode_record", parent=record_stage, call=cid, structure=i):
-                try:
-                    return batching.encode_record(s, self.cfg)
-                except Exception as e:  # noqa: BLE001 — one bad record gives None
-                    print(f"EncodeError: structure {i}: {type(e).__name__}: {e}", file=sys.stderr)
-                    return None
-
-        with tracing.span(f"{call_name}.record_encode", sums=self._stages, key="record_encode",
-                          call=cid) as record_stage:
-            with ThreadPoolExecutor(max(1, int(num_threads))) as pool:
-                recs = list(pool.map(encode_record, enumerate(records)))
-        self._stages.count("batch_calls")
-        return recs
-
     @staticmethod
     def _to_host(*probs):
         """The probabilities copied to pinned host memory without waiting,
@@ -330,13 +311,16 @@ class Predictor:
 
     @staticmethod
     def _pipeline(chunks, submit, collect, pipeline_depth) -> None:
-        """submit(chunk) for each chunk in turn, with at most
-        `pipeline_depth` submitted chunks not yet collected; collect(chunk,
-        submit's result) in the same order."""
+        """submit(chunk, in_flight) for each chunk in turn, in_flight the
+        chunks submitted and not yet collected (at most `pipeline_depth`);
+        collect(*submit's result) in the same order. A submit that returns
+        None launched nothing, and nothing of it is collected."""
         depth = max(1, int(pipeline_depth))
         pending = deque()
         for chunk in chunks:
-            pending.append((chunk, submit(chunk)))
+            submitted = submit(chunk, len(pending))
+            if submitted is not None:
+                pending.append(submitted)
             if len(pending) > depth:
                 collect(*pending.popleft())
         while pending:
@@ -345,19 +329,25 @@ class Predictor:
     def _schedule(self, call_name, records, n_out, plan, n_sides, atoms_per_call, num_threads,
                   pipeline_depth, **call_attrs) -> list:
         """The stages of the batched call `call_name` over `records`, under
-        its span (whose attributes are `call_attrs`). The records encode in
-        the thread pool; `plan(recs)` then yields (slot, name, item): an
-        item is a tuple of `n_sides` record indices, one per side of
-        `_forward`, its answer goes to out[slot], and a SizeError names it.
-        Items are keyed by their sides' (atom, residue) buckets, and the
+        its span (whose attributes are `call_attrs`), all of the record work
+        on the caller's thread. First the sizes of every record
+        (`batching.record_sizes`); `plan(sizes)` then yields (slot, name,
+        item): an item is a tuple of `n_sides` record indices, one per side
+        of `_forward`, its answer goes to out[slot], and a SizeError names
+        it. Items are keyed by their sides' (atom, residue) buckets, and the
         items of a key, in first-seen order, go in chunks of at most
         `atoms_per_call` padded atoms a side (at least one item); over a
         mesh, per device, and a chunk splits into equal parts, one per data
-        device. Each part's sides go through the BatchEncoder and
-        `_forward`, the probabilities back to pinned host memory, with up
-        to `pipeline_depth` chunks in flight. Returns out [n_out]: each
+        device. As each chunk is submitted, the coordinates and vocabulary
+        codes (`batching.record_codes`) of its records not yet coded are
+        made, while up to `pipeline_depth` earlier chunks run on the card;
+        an item with a record whose codes fail leaves its chunk. Each
+        part's sides then go through the BatchEncoder and `_forward`, the
+        probabilities back to pinned host memory. Returns out [n_out]: each
         slot's (item, its sides' probabilities [n_res, C] in the item's
-        order), or None."""
+        order), or None. A record that fails its sizes or its codes gives
+        an EncodeError line on stderr; each record is coded at most once a
+        call, and nothing is kept after it."""
         devices = self._data_devices if self.mesh is not None else [self.device]
         ndev = len(devices)
         # an encode a side of each part of each chunk in flight and the next
@@ -366,18 +356,43 @@ class Predictor:
         with self._encoder(num_threads, need_sets) as encoder, torch.no_grad(), \
                 tracing.span(call_name, **call_attrs) as call:
             cid = call.span_id if call is not None else None
-            recs = self._encode_records(call_name, records, num_threads, cid)
+
+            def encoded(i, part, *args):
+                """part(records[i], *args), or None and a line on stderr."""
+                try:
+                    return part(records[i], *args)
+                except Exception as e:  # noqa: BLE001 — one bad record gives None
+                    print(f"EncodeError: structure {i}: {type(e).__name__}: {e}", file=sys.stderr)
+                    return None
+
+            with tracing.span(f"{call_name}.record_encode", sums=self._stages, key="record_encode",
+                              call=cid, records=len(records), in_flight=0):
+                sizes = [encoded(i, batching.record_sizes) for i in range(len(records))]
+            self._stages.count("batch_calls")
             groups = {}
             with tracing.span(f"{call_name}.plan", call=cid):
-                for slot, name, item in plan(recs):
+                for slot, name, item in plan(sizes):
                     try:
-                        key = tuple(batching.record_buckets(recs[r]) for r in item)
+                        key = tuple(batching.size_buckets(sizes[r][0], sizes[r][2]) for r in item)
                     except ValueError as e:
                         print(f"SizeError: {name}: {e}", file=sys.stderr)
                         continue
                     groups.setdefault(key, []).append((slot, item))
             out = [None] * n_out
             side_names = [""] if n_sides == 1 else ["_a", "_b"]  # na, nr or na_a, nr_a, na_b, nr_b
+            coded = {}  # record index -> (X, codes), or None where they failed
+
+            def code_records(group, in_flight):
+                """The chunk's `.record_encode` stage: the codes of its
+                records not coded yet, each under an `.encode_record` span.
+                Returns the items whose records all have their codes."""
+                todo = [r for r in dict.fromkeys(r for _, item in group for r in item) if r not in coded]
+                with tracing.span(f"{call_name}.record_encode", sums=self._stages, key="record_encode",
+                                  call=cid, records=len(todo), in_flight=in_flight):
+                    for r in todo:
+                        with tracing.span(f"{call_name}.encode_record", call=cid, structure=r):
+                            coded[r] = encoded(r, batching.record_codes, self.cfg)
+                return [(slot, item) for slot, item in group if all(coded[r] is not None for r in item)]
 
             def submit_part(part, key, dev):
                 """Encode and launch one chunk's part on `dev`; the
@@ -393,10 +408,11 @@ class Predictor:
                     # which the encoder refills only after the copy's event
                     sides = []
                     for k, (na, nr) in enumerate(key):
-                        b = encoder.encode([recs[item[k]] for _, item in part], na=na, nr=nr, device=dev)
+                        b = encoder.encode([coded[item[k]] + sizes[item[k]][1:] for _, item in part],
+                                           na=na, nr=nr, device=dev)
                         sides.append((b.X, b.q, b.M, b.atom_mask, nr))
                     if sp is not None:
-                        n = [[int(recs[item[k]][0].shape[0]) for _, item in part] for k in range(n_sides)]
+                        n = [[sizes[item[k]][0] for _, item in part] for k in range(n_sides)]
                         for x, (na, nr) in zip(side_names, key):
                             sp.attrs.update({f"na{x}": na, f"nr{x}": nr})
                         sp.attrs.update(B=len(part), real_atoms=sum(map(sum, n)),
@@ -413,28 +429,33 @@ class Predictor:
                         sp.attrs.update({k: v - before[k] for k, v in self._launches().items()})
                 return result
 
-            def submit(chunk):
-                """One chunk, as len(devices) equal parts, each on its device
-                with no exchange between them. Over a mesh, a chunk is padded
-                to a multiple of the devices by repeating its first item,
-                whose copies are never collected."""
+            def submit(chunk, in_flight):
+                """One chunk's records coded, then the chunk as len(devices)
+                equal parts, each on its device with no exchange between
+                them: (the items launched, the parts' results), or None when
+                no item's codes were made. Over a mesh, a chunk is padded to
+                a multiple of the devices by repeating its first item, whose
+                copies are never collected."""
                 group, key = chunk
+                group = code_records(group, in_flight)
+                if not group:
+                    return None
                 dispatch = group + [group[0]] * (-len(group) % ndev)
                 per = len(dispatch) // ndev
                 results = []
                 for k, dev in enumerate(devices):
                     with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
                         results.append(submit_part(dispatch[k * per : (k + 1) * per], key, dev))
-                return results
+                return group, results
 
-            def collect(chunk, results):
+            def collect(group, results):
                 with tracing.span(f"{call_name}.collect", sums=self._stages, key="device_wait", call=cid):
                     for _, ready in results:
                         if ready is not None:
                             ready.synchronize()
                     probs = [np.concatenate([hosts[k].numpy() for hosts, _ in results]) for k in range(n_sides)]
-                for j, (slot, item) in enumerate(chunk[0]):
-                    out[slot] = item, tuple(p[j, : recs[r][3]] for p, r in zip(probs, item))
+                for j, (slot, item) in enumerate(group):
+                    out[slot] = item, tuple(p[j, : sizes[r][2]] for p, r in zip(probs, item))
 
             chunks = []
             for key, group in groups.items():
@@ -450,16 +471,18 @@ class Predictor:
         grouped by bucket into chunks of at most `atoms_per_call` padded
         atoms (at least one structure). A record that cannot be encoded
         (EncodeError) or is over the largest bucket (SizeError) gives None
-        and a line on stderr; it never fails the others. Up to
-        `pipeline_depth` chunks stay in flight on the device while the host
-        encodes the next one and reads back the oldest. While spans are
+        and a line on stderr; it never fails the others. The records are
+        encoded on the caller's thread, each chunk's as it is submitted; up
+        to `pipeline_depth` chunks stay in flight on the device while the
+        host encodes the next one and reads back the oldest. `num_threads`
+        sizes the BatchEncoder's fill pool. While spans are
         recorded (`utils.tracing`), the call is a `predict_batch` span whose
         stages are its children, each with the call's id."""
         if self.dimer:
             raise TypeError("a dimer Predictor answers predict_pairs, not predict_batch")
 
-        def plan(recs):
-            return ((i, f"structure {i}", (i,)) for i, rec in enumerate(recs) if rec is not None)
+        def plan(sizes):
+            return ((i, f"structure {i}", (i,)) for i, size in enumerate(sizes) if size is not None)
 
         out = self._schedule("predict_batch", structures, len(structures), plan, 1, atoms_per_call,
                              num_threads, pipeline_depth, structures=len(structures))
@@ -471,13 +494,15 @@ class Predictor:
         C], probs_b [n_res_b, C])], each side conditioned on the other, in
         the caller's order; needs a dimer Predictor. The stages are
         predict_batch's: each distinct record (by identity) of the call is
-        encoded once, in the thread pool; each pair is keyed by its sides'
-        (atom, residue) buckets, its larger side first (the answer mapped
-        back), and the pairs of a key go in chunks of at most
-        `atoms_per_call` padded atoms a side; a chunk's two sides go through
-        the BatchEncoder and the kNN kernel, the forward runs both sides'
-        rows as one table (one edge and one cross-attention launch a
-        layer), and up to `pipeline_depth` chunks stay in flight. A pair
+        encoded once, on the caller's thread, with the first chunk that
+        takes it; each pair is keyed by its sides' (atom, residue) buckets,
+        its larger side first (the answer mapped back), and the pairs of a
+        key go in chunks of at most `atoms_per_call` padded atoms a side
+        (`num_threads` sizes the BatchEncoder's fill pool); a chunk's two
+        sides go through the BatchEncoder and the kNN kernel, the forward
+        runs both sides' rows as one table (one edge and one
+        cross-attention launch a layer), and up to `pipeline_depth` chunks
+        stay in flight. A pair
         with a record that cannot be encoded or is over the largest bucket
         gives None (a line on stderr); the other pairs are answered. While
         spans are recorded, the call is a `predict_pairs` span with the
@@ -492,11 +517,11 @@ class Predictor:
                     distinct.append(s)
         sides = [(index[id(a)], index[id(b)]) for a, b in pairs]
 
-        def plan(recs):
+        def plan(sizes):
             for i, item in enumerate(sides):
-                if recs[item[0]] is None or recs[item[1]] is None:
+                if sizes[item[0]] is None or sizes[item[1]] is None:
                     continue
-                if recs[item[1]][0].shape[0] > recs[item[0]][0].shape[0]:
+                if sizes[item[1]][0] > sizes[item[0]][0]:
                     item = item[::-1]  # the larger side first
                 yield i, f"pair {i}", item
 
@@ -507,10 +532,10 @@ class Predictor:
     def predict_pdb_files(self, paths: list, num_threads: int = 8, atoms_per_call: int = 32768,
                           pipeline_depth: int = 2) -> Tuple[list, list]:
         """PDB/mmCIF paths -> (structures, probs), aligned with `paths`.
-        The files are read and cleaned in a thread pool, then predicted by
-        predict_batch. A file that cannot be read gives (None, None) and a
-        ReadError on stderr; a structure that cannot be predicted gives
-        (structure, None)."""
+        The files are read and cleaned in a pool of `num_threads` threads,
+        then predicted by predict_batch. A file that cannot be read gives
+        (None, None) and a ReadError on stderr; a structure that cannot be
+        predicted gives (structure, None)."""
 
         def load(path):
             try:

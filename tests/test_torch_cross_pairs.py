@@ -251,11 +251,16 @@ def test_predict_pairs_spans_carry_their_attributes(pred, recs, monkeypatch):
     assert all(o is not None for o in out)
     (call,) = [s for s in spans if s.name == "predict_pairs"]
     assert call.attrs == {"pairs": len(pairs)}
-    for name in ("record_encode", "plan"):
-        assert len([s for s in spans if s.name == f"predict_pairs.{name}"]) == 1
+    assert len([s for s in spans if s.name == "predict_pairs.plan"]) == 1
+    sizing, *encs = sorted((s for s in spans if s.name == "predict_pairs.record_encode"), key=lambda s: s.start_ns)
+    assert sizing.attrs["records"] == 6 and sizing.attrs["in_flight"] == 0  # the sizes of each distinct record
     records = [s for s in spans if s.name == "predict_pairs.encode_record"]
     assert len(records) == 6  # each distinct record once
-    chunks = [s for s in spans if s.name == "predict_pairs.batch_encode"]
+    assert sum(e.attrs["records"] for e in encs) == 6 and encs[0].attrs["in_flight"] == 0
+    assert {r.parent_id for r in records} <= {e.span_id for e in encs}
+    assert all(s.thread == call.thread for s in encs + records)
+    chunks = sorted((s for s in spans if s.name == "predict_pairs.batch_encode"), key=lambda s: s.start_ns)
+    assert len(encs) == len(chunks) and all(e.end_ns <= c.start_ns for e, c in zip(encs, chunks))
     launches = [s for s in spans if s.name == "predict_pairs.launch"]
     assert len(chunks) == len(launches) == len([s for s in spans if s.name == "predict_pairs.collect"]) >= 2
     sizes = [sorted((len(a["xyz"]), len(b["xyz"]))) for a, b in pairs]
@@ -274,6 +279,26 @@ def test_predict_pairs_spans_carry_their_attributes(pred, recs, monkeypatch):
         want = sum(s.end_ns - s.start_ns for s in spans if s.name == name) / 1e6
         assert pred.stage_ms[key] - before[key] == pytest.approx(want, rel=1e-9, abs=1e-9)
     assert pred.stage_ms["batch_calls"] == before["batch_calls"] + 1
+
+
+def test_predict_pairs_codes_a_shared_chain_once_across_chunks(pred, recs):
+    """A chain in two pairs that fall in different chunks (one pair a
+    chunk): its codes are made once, with the first chunk, under one
+    `.encode_record` span; each pair's answer is its answer alone."""
+    pairs = [(recs[0], recs[1]), (recs[2], recs[0]), (recs[3], recs[4])]
+    with tracing.record():
+        out = pred.predict_pairs(pairs, atoms_per_call=256)
+    spans = tracing.take().spans
+    chunks = [s for s in spans if s.name == "predict_pairs.batch_encode"]
+    assert len(chunks) == 3 and all(c.attrs["B"] == 1 for c in chunks)
+    records = [s.attrs["structure"] for s in spans if s.name == "predict_pairs.encode_record"]
+    assert sorted(records) == [0, 1, 2, 3, 4]  # recs[0] is distinct record 0
+    encs = sorted((s for s in spans if s.name == "predict_pairs.record_encode"), key=lambda s: s.start_ns)
+    assert [e.attrs["records"] for e in encs] == [5, 2, 1, 2]
+    for pair, got in zip(pairs, out):
+        (alone,) = pred.predict_pairs([pair], atoms_per_call=256)
+        for g, w in zip(got, alone):
+            assert np.array_equal(g, w)
 
 
 def test_the_kernels_function_takes_the_plain_versions_gradient(monkeypatch):

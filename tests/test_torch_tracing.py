@@ -1,6 +1,6 @@
 """The span recorder (`pesto_tpu_torch.utils.tracing`) on the CPU: when it
-records, the spans of `Predictor.predict_batch` and their parents across
-the record-encode threads, its buffer and cap, the stage totals it keeps
+records, the spans of `Predictor.predict_batch` and their parents (the
+record encode among them, on the caller's thread), its buffer and cap, the stage totals it keeps
 always, its clock against the profiler's, the launch stamps of
 `ops._build.Entry`, and the spans in `device_trace`'s Chrome trace."""
 
@@ -54,25 +54,43 @@ def test_nothing_is_recorded_with_the_profiler_off_and_outside_record(pred, recs
 
 
 def test_predict_batch_spans_nest_across_the_record_encode_threads(pred, recs):
+    """All of the record work on the caller's thread: one `.record_encode`
+    span for the sizes of every record ahead of the plan, then one per
+    chunk ahead of its `.batch_encode`, over the records it codes (each
+    under an `.encode_record` span, each structure once), with the chunks
+    in flight when it opened."""
     with tracing.record():
         out = pred.predict_batch(recs, atoms_per_call=1024)
     assert all(o is not None for o in out)
     spans = tracing.take().spans
     (call,) = [s for s in spans if s.name == "predict_batch"]
-    (enc,) = [s for s in spans if s.name == "predict_batch.record_encode"]
     assert call.parent_id == 0 and call.attrs == {"structures": len(recs)}
     by_id = {s.span_id: s for s in spans}
     for s in spans:
         if s is not call:
             assert s.attrs.get("call", call.span_id) == call.span_id
             assert call.start_ns <= s.start_ns <= s.end_ns <= call.end_ns
+    (plan,) = [s for s in spans if s.name == "predict_batch.plan"]
+    sizing, *encs = sorted((s for s in spans if s.name == "predict_batch.record_encode"), key=lambda s: s.start_ns)
+    assert sizing.attrs["records"] == len(recs) and sizing.attrs["in_flight"] == 0
+    assert sizing.end_ns <= plan.start_ns
+    chunks = sorted((s for s in spans if s.name == "predict_batch.batch_encode"), key=lambda s: s.start_ns)
+    assert len(chunks) >= 2 and all(by_id[s.parent_id] is call for s in chunks)
+    assert len(encs) == len(chunks) and sum(s.attrs["records"] for s in encs) == len(recs)
+    # the default pipeline_depth, 2: the chunks submitted and not yet collected
+    assert [s.attrs["in_flight"] for s in encs] == [min(k, 2) for k in range(len(encs))]
+    for k, (enc, chunk) in enumerate(zip(encs, chunks)):
+        assert by_id[enc.parent_id] is call and enc.thread == call.thread
+        assert plan.end_ns <= enc.start_ns <= enc.end_ns <= chunk.start_ns
+        if k:
+            assert chunks[k - 1].end_ns <= enc.start_ns
     records = [s for s in spans if s.name == "predict_batch.encode_record"]
     assert sorted(s.attrs["structure"] for s in records) == list(range(len(recs)))
-    for s in records:  # in the pool's threads, children of the stage on the caller's
-        assert s.parent_id == enc.span_id and s.thread != enc.thread
+    for s in records:  # on the caller's thread, inside its chunk's stage
+        enc = by_id[s.parent_id]
+        assert enc in encs and s.thread == call.thread
         assert enc.start_ns <= s.start_ns <= s.end_ns <= enc.end_ns
-    chunks = [s for s in spans if s.name == "predict_batch.batch_encode"]
-    assert len(chunks) >= 2 and all(by_id[s.parent_id] is call for s in chunks)
+    assert [len([s for s in records if s.parent_id == e.span_id]) for e in encs] == [e.attrs["records"] for e in encs]
     assert sum(s.attrs["B"] for s in chunks) == len(recs)
     assert sum(s.attrs["real_atoms"] for s in chunks) == sum(len(r["xyz"]) for r in recs)
     assert all(s.attrs["padded_atoms"] == s.attrs["B"] * s.attrs["na"] for s in chunks)
@@ -80,7 +98,6 @@ def test_predict_batch_spans_nest_across_the_record_encode_threads(pred, recs):
     launches = [s for s in spans if s.name == "predict_batch.launch"]
     assert len(launches) == len(chunks) == len([s for s in spans if s.name == "predict_batch.collect"])
     assert all(s.attrs["knn_launches"] == s.attrs["edge_launches"] == 0 for s in launches)  # plain versions
-    assert len([s for s in spans if s.name == "predict_batch.plan"]) == 1
 
 
 def test_stage_ms_sums_the_matching_spans_while_recording(pred, recs):

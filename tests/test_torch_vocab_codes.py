@@ -82,6 +82,20 @@ def test_record_codes_expand_to_the_dense_one_hot(pred):
     assert [codes[1 + k, k] for k in range(V)] == list(other[:V])
 
 
+def test_encode_record_joins_the_sizes_and_the_codes(pred):
+    """encode_record is record_codes (X, codes) joined with record_sizes'
+    residue codes and n_res; record_sizes' atom count gives the same
+    buckets as the encoded record."""
+    for rec in _records() + [concatenate_chains(preprocess_structure(read_structure(GOLDEN)))]:
+        X, codes, rid, n_res = batching.encode_record(rec, pred.cfg)
+        n, rid_s, n_res_s = batching.record_sizes(rec)
+        Xc, codes_c = batching.record_codes(rec, pred.cfg)
+        assert n == len(X) and n_res_s == n_res and rid_s.dtype == rid.dtype == np.int32
+        for got, want in ((Xc, X), (codes_c, codes), (rid_s, rid)):
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+        assert batching.size_buckets(n, n_res_s) == batching.record_buckets((X, codes, rid, n_res))
+
+
 def test_predict_batch_codes_equal_the_dense_path(pred, monkeypatch):
     """predict_batch's answers, bit for bit, against the same chunks'
     dense BatchEncoder items (float32 one-hots and membership) through
